@@ -1,0 +1,63 @@
+"""CUDA kernels of the PyTorch port against their plain PyTorch versions,
+on the card. Skipped where no CUDA card is present.
+
+This file imports no JAX, so it runs on a machine that has only PyTorch
+and the CUDA toolkit:
+
+    python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+
+def _card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bits", [8, 16])
+@pytest.mark.parametrize("cn", [1, 7, 256, 4099])
+def test_pack_kernel_matches_plain_on_card(bits, cn):
+    from libjxl_torch.models.lossless import (
+        prefix_state_to_device, random_prefix_state,
+    )
+    from libjxl_torch.models.pack_kernel import (
+        T, pack_chunks, pack_chunks_ref,
+    )
+    dev = _card()
+    rng = np.random.default_rng(100 * bits + cn)
+    hi = (1 << 12) if bits == 8 else (1 << 19) - 1
+    v = np.minimum(rng.geometric(0.05, (cn, T)) - 1, hi).astype(np.int64)
+    v[0, T // 2:] = -1                     # sentinel suffix
+    if cn > 2:
+        v[-1] = -1                         # all-invalid chunk
+        v[cn // 2] = 0                     # all-zero chunk
+    v[cn // 3, ::3] = hi                   # the largest residual
+    vt = torch.from_numpy(v.astype(np.int32)).to(dev)
+    lut = prefix_state_to_device(random_prefix_state(rng), dev)
+    before = pack_chunks.launches
+    buf_k, cb_k = pack_chunks(vt, lut)
+    torch.cuda.synchronize()
+    assert pack_chunks.launches == before + 1
+    buf_r, cb_r = pack_chunks_ref(vt, lut)
+    assert torch.equal(cb_k, cb_r)
+    assert torch.equal(buf_k, buf_r)
+
+
+@pytest.mark.gpu
+def test_pack_kernel_rejects_bad_input_on_card():
+    from libjxl_torch.models.pack_kernel import pack_chunks
+    dev = _card()
+    lut = torch.zeros(96, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError):
+        pack_chunks(torch.zeros((4, 64), dtype=torch.int32, device=dev), lut)
+    with pytest.raises(ValueError):
+        pack_chunks(torch.zeros((4, 128), dtype=torch.int64, device=dev),
+                    lut)
+    with pytest.raises(ValueError):
+        pack_chunks(torch.zeros((4, 256), dtype=torch.int32,
+                                device=dev)[:, ::2], lut)
