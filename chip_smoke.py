@@ -1,38 +1,56 @@
 """Smoke run of the PyTorch port on one NVIDIA card.
 
-Drives the port's main path, the lossless serving encode
-``libjxl_torch.api.encoder.encode_lossless_many(imgs, EncodeOptions(
-use_device=True, entropy="prefix-device"))``, on 8 RGB 3840x2160 photos
-plus a 16-bit RGBA image, a ragged gray image and a smooth/noise pair,
-then decodes every stream on the host and requires exact pixels.
+Drives the port's two main paths through their entry points:
 
-Phases: environment, build (nvcc for sm_90a + the native host library),
-the pack kernel against its plain PyTorch version at the chunk count of a
-4K sub-batch, the main path (with launch counts and the batch rate), the
-host decode check, and a check that JAX was never imported. The last two
-lines are the kernels' JSON record and ``{"ok": true, "device": ...}``.
-Any failure raises and exits non-zero before those lines. The script
-reaches the codec only through ``libjxl_torch`` (and ``bench.make_image``
-for its photos).
+* the lossless serving encode ``libjxl_torch.api.encoder.
+  encode_lossless_many(imgs, EncodeOptions(use_device=True,
+  entropy="prefix-device"))`` on 8 RGB 3840x2160 photos plus a 16-bit
+  RGBA image, a ragged gray image and a smooth/noise pair, then decodes
+  every stream on the host and requires exact pixels;
+* the VarDCT serving decode ``libjxl_torch.api.decoder.decode_many`` on
+  8 3840x2160 streams cycled from the committed 4K fixtures
+  (``tests/data/torch_vardct``) plus a ragged and a 16-bit stream, each
+  held within +-1 per 8-bit sample (+-4 per 16-bit sample) of the
+  port's host ``decode``.
+
+Phases: environment, build (nvcc for sm_90a, one process per kernel
+source, all at once, + the native host library), the pack kernel and
+the Gaborish/EPF kernels against their plain PyTorch versions at the
+shapes of the main paths, the encode path (with launch counts and the
+batch rate), its host decode check, the decode path (with launch counts,
+the batch rate and the device-only time), and a check that neither JAX
+nor the JAX package was imported. The last two lines are the kernels'
+JSON record and ``{"ok": true, "device": ...}``. Any failure raises and
+exits non-zero before those lines. The script reaches the codec only
+through ``libjxl_torch`` (and ``bench.make_image`` for its photos).
 
 Run from the repository root, on a machine with a CUDA card:
 
     python3 chip_smoke.py
 """
 
+import hashlib
 import json
 import os
 import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
 CHUNKS_4K = 135 * 3 * 256 * 256 // 128   # chunks of one 3840x2160 image
 PACK_SOURCE = "libjxl_torch/csrc/pack_kernel.cu"
 PACK_REPLACES = "libjxl_tpu/models/pack_kernel.py:53"
+FILTERS_SOURCE = "libjxl_torch/csrc/filters.cu"
+GAB_REPLACES = "libjxl_tpu/models/pallas_filters.py:72"
+EPF_REPLACES = "libjxl_tpu/models/pallas_filters.py:85"
+FIXTURES = os.path.join("tests", "data", "torch_vardct")
 DEVICE = "cuda:0"
+HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
+FP32_FLOPS = 67e12            # H100 SXM float32 outside the tensor cores
+FILTER_TOL = 1e-5
 
 
 def card_line() -> str:
@@ -101,9 +119,229 @@ def phase_kernel(dev) -> dict:
               f"plain {plain_ms} ms, "
               f"mean chunk bits {float(cb_k.float().mean())}", flush=True)
         if rec is None:
-            rec = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+            # each residual read once, each word and chunk count written
+            # once (the 96-entry table is negligible)
+            nbytes = v.numel() * 4 + buf_k.numel() * 4 + cb_k.numel() * 4
+            rec = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                       bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+                       bound_by="bytes", library_ms=None)
+            print(f"pack kernel bound: {nbytes} bytes over "
+                  f"{HBM_BYTES_PER_S} B/s = {rec['bound_ms']} ms; no single "
+                  "PyTorch call computes a prefix-code pack", flush=True)
         del v, buf_k, buf_r
     return rec
+
+
+def _filter_inputs(rng, h: int, w: int, dev):
+    """Random XYB in [-0.12, 0.18] and a per-8x8-block inv_sigma in
+    [-3, -0.05] with a patch of -1e4 (below K_MIN_SIGMA: passes through)."""
+    import torch
+    xyb = ((rng.random((3, h, w)) - 0.4) * 0.3).astype(np.float32)
+    yb, xb = -(-h // 8), -(-w // 8)
+    inv = -rng.uniform(0.05, 3.0, (yb, xb)).astype(np.float32)
+    inv[yb // 2:yb // 2 + max(1, yb // 8), :max(1, xb // 4)] = -1e4
+    return torch.from_numpy(xyb).to(dev), torch.from_numpy(inv).to(dev)
+
+
+# float operations per pixel of each pass, as the plain version counts
+# them: Gaborish 11 a channel; per EPF neighbour 11 for the scaled
+# abs-diff, 4 for the plus box, 3 for the weight, 7 for the sums (pass 2:
+# 11 + 3 + 7), plus 5 a pixel
+_FILTER_FLOPS = {"gab": 33, 0: 12 * 25 + 5, 1: 4 * 25 + 5, 2: 4 * 21 + 5}
+
+
+def phase_filters(dev, card: str) -> dict:
+    """Gaborish and EPF passes 0/1/2 against their plain versions on a
+    3840x2160 frame (and 1x7, 3x5), each within FILTER_TOL; kernel,
+    plain and bound times, and for Gaborish the time of the one PyTorch
+    call that computes it (a grouped conv2d on the mirror-padded
+    input, which the port never calls). Returns the JSON records."""
+    import torch
+    import torch.nn.functional as tf
+
+    from libjxl_torch.core.frame_header import LoopFilter
+    from libjxl_torch.models.filter_kernels import (
+        epf_filter, epf_ref, gaborish_filter, gaborish_ref, mirror_pad,
+    )
+    from libjxl_torch.render.filters_torch import (
+        epf_args, gab_weights, lf_params,
+    )
+
+    lfp = lf_params(LoopFilter(), dev)
+    runs = {"gab": (gaborish_filter, gaborish_ref, gab_weights(lfp))}
+    for pid in (0, 1, 2):
+        runs[pid] = (epf_filter, epf_ref, (pid,) + epf_args(lfp, pid))
+    rng = np.random.default_rng(2160)
+    big = _filter_inputs(rng, 2160, 3840, dev)
+    small = [_filter_inputs(rng, h, w, dev) for h, w in ((1, 7), (3, 5))]
+    out = {}
+    for which, (kern, plain, args) in runs.items():
+        err = 0.0
+        for x, inv in [big] + small:
+            a = args if which == "gab" else (inv,) + args
+            got = kern(x, *a)
+            torch.cuda.synchronize()
+            err = max(err, float((got - plain(x, *a)).abs().max()))
+        if not err <= FILTER_TOL:
+            raise AssertionError(f"filter {which}: kernel != plain version "
+                                 f"(max abs err {err} > {FILTER_TOL})")
+        x, inv = big
+        a = args if which == "gab" else (inv,) + args
+        ms = _time_ms(lambda: kern(x, *a), 50)
+        plain_ms = _time_ms(lambda: plain(x, *a), 3)
+        h, w = x.shape[1:]
+        nbytes = 2 * x.numel() * 4 + (0 if which == "gab"
+                                      else inv.numel() * 4)
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = _FILTER_FLOPS[which] * h * w / FP32_FLOPS * 1e3
+        rec = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                   bound_ms=max(t_bytes, t_ops),
+                   bound_by="bytes" if t_bytes >= t_ops else "operations",
+                   library_ms=None)
+        line = (f"filter {which} == plain within {FILTER_TOL} (max abs err "
+                f"{err}), 3x2160x3840: kernel {ms} ms, plain {plain_ms} ms, "
+                f"bound {rec['bound_ms']} ms ({nbytes} bytes -> {t_bytes} "
+                f"ms, {_FILTER_FLOPS[which]} flop/px -> {t_ops} ms)")
+        if which == "gab":
+            weight = torch.tensor(args, dtype=torch.float32, device=dev)
+            k = torch.zeros((3, 1, 3, 3), dtype=torch.float32, device=dev)
+            k[:, 0, 1, 1] = weight[0]
+            k[:, 0, 0, 1] = k[:, 0, 2, 1] = k[:, 0, 1, 0] = \
+                k[:, 0, 1, 2] = weight[1]
+            k[:, 0, 0, 0] = k[:, 0, 0, 2] = k[:, 0, 2, 0] = \
+                k[:, 0, 2, 2] = weight[2]
+            padded = mirror_pad(x, 1)[None].contiguous()
+            conv = tf.conv2d(padded, k, groups=3)[0]
+            rec["library_ms"] = _time_ms(
+                lambda: tf.conv2d(padded, k, groups=3), 50)
+            line += (f"; library F.conv2d(mirror-padded, groups=3) "
+                     f"{rec['library_ms']} ms (max abs diff "
+                     f"{float((conv - kern(x, *a)).abs().max())})")
+        else:
+            line += "; library: none (no single PyTorch call is an EPF pass)"
+        print(line + f", on {card}", flush=True)
+        out[which] = rec
+    del big, small
+    torch.cuda.empty_cache()
+    return out
+
+
+def load_fixtures() -> tuple[dict, dict]:
+    """The committed VarDCT streams, each checked against its sha256."""
+    with open(os.path.join(FIXTURES, "manifest.json")) as f:
+        manifest = json.load(f)
+    streams = {}
+    for name, m in manifest.items():
+        with open(os.path.join(FIXTURES, name), "rb") as f:
+            data = f.read()
+        if hashlib.sha256(data).hexdigest() != m["sha256"]:
+            raise AssertionError(f"fixture {name} does not match its sha256")
+        streams[name] = data
+    return manifest, streams
+
+
+def phase_vardct_decode(dev, card: str) -> dict:
+    """The VarDCT serving decode: 8 4K streams cycled from the fixtures
+    plus the ragged and 16-bit ones through decode_many on the card,
+    with the launch counts of that run; every frame on the device, every
+    output within +-1 per 8-bit sample (+-4 per 16-bit sample) of the
+    host decode; the warm batch rate and the device-only time."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    import torch
+
+    from libjxl_torch.api.decoder import (
+        _device_decode_inputs, decode, decode_many,
+    )
+    from libjxl_torch.models.filter_kernels import (
+        epf_filter, gaborish_filter,
+    )
+    from libjxl_torch.models.vardct_decode import decode_frames_device
+
+    manifest, fixtures = load_fixtures()
+    photos = sorted(n for n in manifest if n.startswith("photo4k"))
+    names = [photos[i % len(photos)] for i in range(8)] + sorted(
+        n for n in manifest if not n.startswith("photo4k"))
+    batch = [fixtures[n] for n in names]
+    decode_many.device_frames = 0
+    gaborish_filter.launches = 0
+    epf_filter.launches = 0
+    epf_filter.pass_launches = [0, 0, 0]
+    t0 = time.perf_counter()
+    outs = decode_many(batch, device=dev)
+    t_cold = time.perf_counter() - t0
+    counts = dict(device_frames=decode_many.device_frames,
+                  gaborish=gaborish_filter.launches,
+                  epf=epf_filter.launches,
+                  epf_passes=list(epf_filter.pass_launches))
+    print(f"decode path: {len(batch)} streams in {t_cold} s (cold), "
+          f"counts {counts}", flush=True)
+    if counts["device_frames"] != len(batch):
+        raise AssertionError("decode_many reconstructed "
+                             f"{counts['device_frames']} of {len(batch)} "
+                             "frames on the device")
+    if counts["gaborish"] <= 0 or min(counts["epf_passes"]) <= 0:
+        raise AssertionError(f"a filter kernel was not launched: {counts}")
+
+    mp = sum(manifest[n]["h"] * manifest[n]["w"] for n in names) / 1e6
+    rates = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        again = decode_many(batch, device=dev)
+        rates.append(mp / (time.perf_counter() - t0))
+    if not all(np.array_equal(a, b) for a, b in zip(again, outs)):
+        raise AssertionError("a repeated decode gave other pixels")
+    print(f"decode batch ({len(batch)} streams, {mp} MP, host stage "
+          f"included): {rates} MP/s (median {statistics.median(rates)}), "
+          f"on {card}", flush=True)
+
+    # device only: the frames' host stage done, decode_frames_device
+    # from the numpy inputs (their upload included) to the integer image
+    t0 = time.perf_counter()
+    prepped = [_device_decode_inputs(fixtures[n]) for n in names[:8]]
+    print(f"host stage (parse + native AC decode), the 8 photo streams "
+          f"one after another: {(time.perf_counter() - t0) * 1e3} ms",
+          flush=True)
+    groups: dict = {}
+    for fr, key, lf in prepped:
+        groups.setdefault(key, (lf, []))[1].append(fr)
+
+    def device_only():
+        for key, (lf, frs) in groups.items():
+            decode_frames_device(frs, lf, key[4], key[5], key[0], key[1],
+                                 (1 << key[6]) - 1, dev, fetch=False)
+
+    dev_ms = _time_ms(device_only, 3)
+    mp8 = sum(manifest[n]["h"] * manifest[n]["w"] for n in names[:8]) / 1e6
+    print(f"decode_frames_device, the 8 photo frames already parsed "
+          f"({mp8} MP): {dev_ms} ms ({mp8 / dev_ms * 1e3} MP/s), "
+          f"on {card}", flush=True)
+
+    # the host decode of each distinct stream, in spawned workers
+    distinct = sorted(set(names))
+    t0 = time.perf_counter()
+    with ProcessPoolExecutor(
+            max_workers=min(len(distinct), os.cpu_count() or 1),
+            mp_context=multiprocessing.get_context("spawn")) as ex:
+        host = dict(zip(distinct, ex.map(decode,
+                                         [fixtures[n] for n in distinct])))
+    worst = {}
+    for name, got in zip(names, outs):
+        want = host[name]
+        tol = 1 if manifest[name]["bits"] <= 8 else 4
+        if got.shape != want.shape or got.dtype != want.dtype:
+            raise AssertionError(f"{name}: {got.shape} {got.dtype} against "
+                                 f"the host's {want.shape} {want.dtype}")
+        diff = np.abs(got.astype(np.int64) - want.astype(np.int64))
+        worst[name] = (int(diff.max()), float((diff > 0).mean()))
+        if diff.max() > tol:
+            raise AssertionError(f"{name}: device decode differs from the "
+                                 f"host decode by {diff.max()} > {tol}")
+    print(f"decode path: every output within +-1 (8-bit) / +-4 (16-bit) "
+          f"of the host decode (max diff, share of samples that differ): "
+          f"{worst} ({time.perf_counter() - t0} s on the host)", flush=True)
+    return counts
 
 
 def main_path_images() -> tuple[list, dict]:
@@ -161,21 +399,26 @@ def main() -> None:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"on {torch.cuda.get_device_name(0)}", flush=True)
 
-    # 2. build
+    # 2. build: one nvcc per kernel source, all started together
     t0 = time.perf_counter()
-    so_path, report = build("pack_kernel")
-    print(f"built {os.path.relpath(so_path)} "
-          f"({time.perf_counter() - t0} s); nvcc -Xptxas -v:", flush=True)
-    print(report.strip(), flush=True)
+    sources = ("pack_kernel", "filters")
+    with ThreadPoolExecutor(len(sources)) as ex:
+        built = list(ex.map(build, sources))
+    for name, (so_path, report) in zip(sources, built):
+        print(f"built {os.path.relpath(so_path)}; nvcc -Xptxas -v:",
+              flush=True)
+        print(report.strip(), flush=True)
+    print(f"kernels built in {time.perf_counter() - t0} s", flush=True)
     t0 = time.perf_counter()
     native_lib()
     print(f"native host library ready ({time.perf_counter() - t0} s)",
           flush=True)
 
-    # 3. the kernel against its plain version on the card
+    # 3. the kernels against their plain versions on the card
     rec = phase_kernel(dev)
+    filters = phase_filters(dev, card)
 
-    # 4. the main path
+    # 4. the encode path
     photos, extras = main_path_images()
     names = ([f"photo{i}" for i in range(len(photos))]
              + list(extras))
@@ -213,22 +456,40 @@ def main() -> None:
           f"(median {statistics.median(rates)}), {bpp} bpp, "
           f"on {card}", flush=True)
 
-    # decode every stream on the host
+    # 5. the decode path
+    counts = phase_vardct_decode(dev, card)
+
+    # 6. decode every lossless stream on the host
     jobs = ([(n, s, im) for n, s, im in zip(names, streams, batch)]
             + [("rgba16 two-pass", two_pass, extras["rgba16"]),
                ("gray ans", ans, extras["gray"])])
     phase_decode(jobs)
 
-    # 5. jax stayed out
-    if "jax" in sys.modules:
-        raise AssertionError("jax was imported")
-    print("jax: not imported", flush=True)
+    # 7. neither jax nor the JAX package was imported
+    loaded = [m for m in sys.modules
+              if m.split(".")[0] in ("jax", "libjxl_tpu")]
+    if loaded:
+        raise AssertionError(f"imported: {loaded}")
+    print("jax, libjxl_tpu: not imported", flush=True)
 
-    # 6. results
+    # 8. results
     print(card_line(), flush=True)
-    print(json.dumps({"kernels": [dict(
-        name="pack_chunks", route="cuda", source=PACK_SOURCE,
-        replaces=PACK_REPLACES, launches=launches, **rec)]}), flush=True)
+    epf_passes = [filters[p] for p in (0, 1, 2)]
+    epf = dict(max_abs_err=max(r["max_abs_err"] for r in epf_passes),
+               **{k: sum(r[k] for r in epf_passes)
+                  for k in ("ms", "plain_ms", "bound_ms")},
+               bound_by="bytes" if all(r["bound_by"] == "bytes"
+                                       for r in epf_passes)
+               else "operations", library_ms=None)
+    print(json.dumps({"kernels": [
+        dict(name="pack_chunks", route="cuda", source=PACK_SOURCE,
+             replaces=PACK_REPLACES, launches=launches, **rec),
+        dict(name="gaborish", route="cuda", source=FILTERS_SOURCE,
+             replaces=GAB_REPLACES, launches=counts["gaborish"],
+             **filters["gab"]),
+        dict(name="epf", route="cuda", source=FILTERS_SOURCE,
+             replaces=EPF_REPLACES, launches=counts["epf"], **epf),
+    ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -21,6 +21,10 @@ torch.backends.cudnn.allow_tf32 = False
 @dataclass
 class RuntimeConfig:
     device: str = "cuda"
+    # decode() switches to the banded low-memory decoder above this
+    # many pixels (low_memory_render_pipeline.cc spirit): pixel
+    # intermediates stay bounded by ~3 group rows. 64 MP default.
+    auto_band_pixels: int = 64 << 20
 
 
 config = RuntimeConfig()

@@ -61,3 +61,45 @@ def test_pack_kernel_rejects_bad_input_on_card():
     with pytest.raises(ValueError):
         pack_chunks(torch.zeros((4, 256), dtype=torch.int32,
                                 device=dev)[:, ::2], lut)
+
+
+def _filter_inputs(seed: int, h: int, w: int, dev):
+    """XYB in [-0.12, 0.18] and a per-block inv_sigma with a patch below
+    K_MIN_SIGMA (sharpness 0 gives -1e4)."""
+    from libjxl_torch.models.filter_kernels import K_MIN_SIGMA
+    rng = np.random.default_rng(seed)
+    xyb = ((rng.random((3, h, w)) - 0.4) * 0.3).astype(np.float32)
+    yb, xb = -(-h // 8), -(-w // 8)
+    inv = -rng.uniform(0.05, 3.0, (yb, xb)).astype(np.float32)
+    inv[yb // 2:, :(xb + 1) // 2] = -1e4
+    assert (inv < K_MIN_SIGMA).any()
+    return (torch.from_numpy(xyb).to(dev), torch.from_numpy(inv).to(dev))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(1, 7), (3, 5), (2, 1), (37, 61),
+                                   (270, 481)])
+@pytest.mark.parametrize("which", ["gab", 0, 1, 2])
+def test_filter_kernels_match_plain_on_card(shape, which):
+    """Gaborish and EPF passes 0/1/2 against their plain versions, within
+    1e-5 (float32 summation and FMA order differ)."""
+    from libjxl_torch.models.filter_kernels import (
+        epf_filter, epf_ref, gaborish_filter, gaborish_ref,
+    )
+    dev = _card()
+    x, inv = _filter_inputs(shape[0] * 1000 + shape[1], *shape, dev)
+    if which == "gab":
+        w = ((0.7, 0.72, 0.8), (0.05, 0.06, 0.04), (0.025, 0.01, 0.01))
+        before = gaborish_filter.launches
+        got = gaborish_filter(x, *w)
+        torch.cuda.synchronize()
+        assert gaborish_filter.launches == before + 1
+        want = gaborish_ref(x, *w)
+    else:
+        args = (inv, which, (40.0, 5.0, 3.5), 1.65 * 0.9, 1.65 * 0.9 * 2 / 3)
+        before = epf_filter.pass_launches[which]
+        got = epf_filter(x, *args)
+        torch.cuda.synchronize()
+        assert epf_filter.pass_launches[which] == before + 1
+        want = epf_ref(x, *args)
+    assert float((got - want).abs().max()) <= 1e-5

@@ -179,7 +179,7 @@ def test_native_library_built_before_worker_threads(monkeypatch):
     import time
 
     from libjxl_torch.api.encoder import EncodeOptions, encode_lossless_many
-    from libjxl_tpu.utils import native
+    from libjxl_torch.utils import native
     so_path = native._build()
 
     def slow_build():
@@ -188,12 +188,10 @@ def test_native_library_built_before_worker_threads(monkeypatch):
 
     monkeypatch.setattr(native, "_build", slow_build)
     monkeypatch.setattr(native, "_lib", None)
-    monkeypatch.setattr(native, "_tried", False)
     imgs = [_image(70, 60, 80, 3), _image(71, 70, 90, 3)]
     opts = EncodeOptions(use_device=True, entropy="prefix-device")
     want = [encode_lossless_many([im], opts, device=CPU)[0] for im in imgs]
     monkeypatch.setattr(native, "_lib", None)
-    monkeypatch.setattr(native, "_tried", False)
     assert encode_lossless_many(imgs, opts, device=CPU) == want
 
 
@@ -224,10 +222,22 @@ def test_device_is_explicit():
 _BLOCKED = r"""
 import sys
 sys.modules["jax"] = None          # any import of jax now fails
+
+
+class _NoReference:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] == "libjxl_tpu":
+            raise ImportError("libjxl_tpu is blocked: " + name)
+        return None
+
+
+sys.meta_path.insert(0, _NoReference())
 import numpy as np
 import libjxl_torch
-from libjxl_torch.api.encoder import EncodeOptions, encode_lossless_many
-from libjxl_tpu.api.decoder import decode
+from libjxl_torch.api.decoder import decode, decode_many
+from libjxl_torch.api.encoder import (
+    EncodeOptions, encode_lossless, encode_lossless_many,
+)
 rng = np.random.default_rng(0)
 imgs = [np.clip(np.cumsum(rng.integers(-3, 4, (130, 150, 3)), axis=1),
                 0, 255).astype(np.uint8) for _ in range(2)]
@@ -235,17 +245,25 @@ imgs.append(imgs[0][:, :, 0])
 outs = encode_lossless_many(
     imgs, EncodeOptions(use_device=True, entropy="prefix-device"),
     device="cpu")
-for im, s in zip(imgs, outs):
+outs.append(encode_lossless(imgs[0], EncodeOptions(effort=7)))
+for im, s in zip(imgs + imgs[:1], outs):
     assert np.array_equal(decode(s).reshape(im.shape), im)
-assert not [m for m in sys.modules if m.startswith("jax.")]
-assert "libjxl_tpu.models.lossless" not in sys.modules
+with open("tests/data/torch_vardct/rgb16_301x517.jxl", "rb") as f:
+    lossy = f.read()
+dev = decode_many([lossy], device="cpu")[0]
+host = decode(lossy)
+assert dev.shape == host.shape == (301, 517, 3)
+assert np.abs(dev.astype(int) - host.astype(int)).max() <= 4
+assert decode_many.device_frames == 1
+assert not [m for m, mod in sys.modules.items()
+            if mod is not None and m.split(".")[0] in ("jax", "libjxl_tpu")]
 print("ok")
 """
 
 
 def test_port_runs_with_jax_blocked():
-    """The card machine has no JAX: the port and the libjxl_tpu host code
-    it reuses must import and run without it."""
+    """The card machine has no JAX, and the port imports nothing of the
+    JAX package: it encodes and decodes with both blocked."""
     for root, _, files in os.walk(os.path.join(REPO, "libjxl_torch")):
         for f in files:
             if f.endswith(".py"):
