@@ -27,6 +27,11 @@ through ``libjxl_torch`` (and ``bench.make_image`` for its photos).
 Run from the repository root, on a machine with a CUDA card:
 
     python3 chip_smoke.py
+
+``python3 chip_smoke.py --filters`` runs only the environment, the build
+and the filter kernels against their plain versions, and prints their
+records as one JSON line (no main path, no ``ok`` line): copied into
+another checkout, it times that checkout's kernels on the same card.
 """
 
 import hashlib
@@ -153,9 +158,10 @@ _FILTER_FLOPS = {"gab": 33, 0: 12 * 25 + 5, 1: 4 * 25 + 5, 2: 4 * 21 + 5}
 def phase_filters(dev, card: str) -> dict:
     """Gaborish and EPF passes 0/1/2 against their plain versions on a
     3840x2160 frame (and 1x7, 3x5), each within FILTER_TOL; kernel,
-    plain and bound times, and for Gaborish the time of the one PyTorch
-    call that computes it (a grouped conv2d on the mirror-padded
-    input, which the port never calls). Returns the JSON records."""
+    plain and bound times and the bound's share of the kernel time, and
+    for Gaborish the time of the one PyTorch call that computes it (a
+    grouped conv2d on the mirror-padded input, which the port never
+    calls). Returns the JSON records."""
     import torch
     import torch.nn.functional as tf
 
@@ -198,10 +204,12 @@ def phase_filters(dev, card: str) -> dict:
                    bound_ms=max(t_bytes, t_ops),
                    bound_by="bytes" if t_bytes >= t_ops else "operations",
                    library_ms=None)
+        rec["bound_share"] = rec["bound_ms"] / ms
         line = (f"filter {which} == plain within {FILTER_TOL} (max abs err "
                 f"{err}), 3x2160x3840: kernel {ms} ms, plain {plain_ms} ms, "
                 f"bound {rec['bound_ms']} ms ({nbytes} bytes -> {t_bytes} "
-                f"ms, {_FILTER_FLOPS[which]} flop/px -> {t_ops} ms)")
+                f"ms, {_FILTER_FLOPS[which]} flop/px -> {t_ops} ms, "
+                f"{rec['bound_share']} of the kernel time)")
         if which == "gab":
             weight = torch.tensor(args, dtype=torch.float32, device=dev)
             k = torch.zeros((3, 1, 3, 3), dtype=torch.float32, device=dev)
@@ -283,6 +291,12 @@ def phase_vardct_decode(dev, card: str) -> dict:
                              "frames on the device")
     if counts["gaborish"] <= 0 or min(counts["epf_passes"]) <= 0:
         raise AssertionError(f"a filter kernel was not launched: {counts}")
+    # one launch a frame of each pass the frame's header asks for
+    want = dict(gaborish=sum(manifest[n]["gab"] for n in names),
+                epf_passes=[sum(manifest[n]["epf_iters"] >= k for n in names)
+                            for k in (3, 1, 2)])
+    if [counts["gaborish"], counts["epf_passes"]] != list(want.values()):
+        raise AssertionError(f"filter launches {counts}, want {want}")
 
     mp = sum(manifest[n]["h"] * manifest[n]["w"] for n in names) / 1e6
     rates = []
@@ -380,16 +394,49 @@ def phase_decode(jobs: list) -> None:
           f"({time.perf_counter() - t0} s on the host)", flush=True)
 
 
+def build_kernels(sources) -> None:
+    """nvcc for each kernel source, all started together; prints each
+    -Xptxas -v report."""
+    from libjxl_torch.utils.cuda_build import build
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(sources)) as ex:
+        built = list(ex.map(build, sources))
+    for name, (so_path, report) in zip(sources, built):
+        print(f"built {os.path.relpath(so_path)}; nvcc -Xptxas -v:",
+              flush=True)
+        print(report.strip(), flush=True)
+    print(f"kernels built in {time.perf_counter() - t0} s", flush=True)
+
+
+def filter_records(filters: dict, counts: dict) -> list:
+    """The kernels-line records of Gaborish and of each EPF pass, with the
+    launches of the decode path's run (``counts``; None where it was not
+    driven)."""
+    recs = [dict(name="gaborish", route="cuda", source=FILTERS_SOURCE,
+                 replaces=GAB_REPLACES, launches=counts.get("gaborish"),
+                 **filters["gab"])]
+    for p in (0, 1, 2):
+        launches = counts["epf_passes"][p] if counts else None
+        recs.append(dict(name=f"epf{p}", route="cuda", source=FILTERS_SOURCE,
+                         replaces=EPF_REPLACES, launches=launches,
+                         **filters[p]))
+    return recs
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is false")
-    # the port's modules exist only in a checkout of the repository
+    try:
+        import libjxl_torch  # noqa: F401
+    except ImportError:
+        sys.exit("chip_smoke: libjxl_torch is not importable: run the "
+                 "script from the root of a checkout of the repository")
     from libjxl_torch.api.encoder import (
         EncodeOptions, encode_lossless, encode_lossless_many, native_lib,
     )
     from libjxl_torch.models.pack_kernel import pack_chunks
-    from libjxl_torch.utils.cuda_build import build
 
     # 1. environment
     card = card_line()
@@ -399,16 +446,16 @@ def main() -> None:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"on {torch.cuda.get_device_name(0)}", flush=True)
 
+    if sys.argv[1:] == ["--filters"]:
+        build_kernels(("filters",))
+        print(json.dumps({"filters": filter_records(
+            phase_filters(dev, card), {})}), flush=True)
+        return
+    if sys.argv[1:]:
+        sys.exit(f"chip_smoke: unknown arguments {sys.argv[1:]}")
+
     # 2. build: one nvcc per kernel source, all started together
-    t0 = time.perf_counter()
-    sources = ("pack_kernel", "filters")
-    with ThreadPoolExecutor(len(sources)) as ex:
-        built = list(ex.map(build, sources))
-    for name, (so_path, report) in zip(sources, built):
-        print(f"built {os.path.relpath(so_path)}; nvcc -Xptxas -v:",
-              flush=True)
-        print(report.strip(), flush=True)
-    print(f"kernels built in {time.perf_counter() - t0} s", flush=True)
+    build_kernels(("pack_kernel", "filters"))
     t0 = time.perf_counter()
     native_lib()
     print(f"native host library ready ({time.perf_counter() - t0} s)",
@@ -474,22 +521,11 @@ def main() -> None:
 
     # 8. results
     print(card_line(), flush=True)
-    epf_passes = [filters[p] for p in (0, 1, 2)]
-    epf = dict(max_abs_err=max(r["max_abs_err"] for r in epf_passes),
-               **{k: sum(r[k] for r in epf_passes)
-                  for k in ("ms", "plain_ms", "bound_ms")},
-               bound_by="bytes" if all(r["bound_by"] == "bytes"
-                                       for r in epf_passes)
-               else "operations", library_ms=None)
+    rec["bound_share"] = rec["bound_ms"] / rec["ms"]
     print(json.dumps({"kernels": [
         dict(name="pack_chunks", route="cuda", source=PACK_SOURCE,
              replaces=PACK_REPLACES, launches=launches, **rec),
-        dict(name="gaborish", route="cuda", source=FILTERS_SOURCE,
-             replaces=GAB_REPLACES, launches=counts["gaborish"],
-             **filters["gab"]),
-        dict(name="epf", route="cuda", source=FILTERS_SOURCE,
-             replaces=EPF_REPLACES, launches=counts["epf"], **epf),
-    ]}), flush=True)
+    ] + filter_records(filters, counts)}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

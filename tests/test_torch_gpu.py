@@ -63,22 +63,41 @@ def test_pack_kernel_rejects_bad_input_on_card():
                                 device=dev)[:, ::2], lut)
 
 
-def _filter_inputs(seed: int, h: int, w: int, dev):
-    """XYB in [-0.12, 0.18] and a per-block inv_sigma with a patch below
-    K_MIN_SIGMA (sharpness 0 gives -1e4)."""
+def _filter_inputs(seed: int, h: int, w: int, dev, sigma_extra: int = 0,
+                   patch=None):
+    """XYB in [-0.12, 0.18] and a per-block inv_sigma, ``sigma_extra``
+    columns wider than the image needs, with a patch below K_MIN_SIGMA
+    (sharpness 0 gives -1e4): ``patch`` = (y0, y1, x0, x1) in blocks, by
+    default the lower left quarter."""
     from libjxl_torch.models.filter_kernels import K_MIN_SIGMA
     rng = np.random.default_rng(seed)
     xyb = ((rng.random((3, h, w)) - 0.4) * 0.3).astype(np.float32)
     yb, xb = -(-h // 8), -(-w // 8)
-    inv = -rng.uniform(0.05, 3.0, (yb, xb)).astype(np.float32)
-    inv[yb // 2:, :(xb + 1) // 2] = -1e4
+    inv = -rng.uniform(0.05, 3.0, (yb, xb + sigma_extra)).astype(np.float32)
+    if patch is None:
+        inv[yb // 2:, :(xb + 1) // 2] = -1e4
+    else:
+        inv[patch[0]:patch[1], patch[2]:patch[3]] = -1e4
     assert (inv < K_MIN_SIGMA).any()
     return (torch.from_numpy(xyb).to(dev), torch.from_numpy(inv).to(dev))
 
 
+# (h, w[, extra inv_sigma columns, pass-through patch in blocks]). EPF0
+# and EPF1 give each warp a strip of 32 columns of which 26 (EPF0) or 28
+# (EPF1) are output, put 4 strips side by side in a block, and walk runs
+# of 32 (EPF0) or 16 (EPF1) rows: the shapes at and one pixel past a
+# strip and run and a block, a width of 30, a frame whose inner tiles
+# copy 16-byte pieces without the mirror, a wider inv_sigma and a
+# pass-through patch across a run border (y 32) and a strip border
+# (x 26 and 28).
+FILTER_SHAPES = [(1, 7), (3, 5), (2, 1), (37, 61), (270, 481),
+                 (32, 26), (33, 27), (16, 28), (17, 29), (32, 30),
+                 (32, 104), (33, 105), (16, 112), (17, 113), (200, 300),
+                 (70, 90, 5, None), (96, 120, 0, (3, 5, 3, 4))]
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("shape", [(1, 7), (3, 5), (2, 1), (37, 61),
-                                   (270, 481)])
+@pytest.mark.parametrize("shape", FILTER_SHAPES)
 @pytest.mark.parametrize("which", ["gab", 0, 1, 2])
 def test_filter_kernels_match_plain_on_card(shape, which):
     """Gaborish and EPF passes 0/1/2 against their plain versions, within
@@ -87,7 +106,8 @@ def test_filter_kernels_match_plain_on_card(shape, which):
         epf_filter, epf_ref, gaborish_filter, gaborish_ref,
     )
     dev = _card()
-    x, inv = _filter_inputs(shape[0] * 1000 + shape[1], *shape, dev)
+    x, inv = _filter_inputs(shape[0] * 1000 + shape[1], *shape[:2], dev,
+                            *shape[2:])
     if which == "gab":
         w = ((0.7, 0.72, 0.8), (0.05, 0.06, 0.04), (0.025, 0.01, 0.01))
         before = gaborish_filter.launches
