@@ -8,21 +8,32 @@ Drives the port's two main paths through their entry points:
   RGBA image, a ragged gray image and a smooth/noise pair, then decodes
   every stream on the host and requires exact pixels;
 * the VarDCT serving decode ``libjxl_torch.api.decoder.decode_many`` on
-  8 3840x2160 streams cycled from the committed 4K fixtures
-  (``tests/data/torch_vardct``) plus a ragged and a 16-bit stream, each
-  held within +-1 per 8-bit sample (+-4 per 16-bit sample) of the
-  port's host ``decode``.
+  two batches: the DCT8 one, 8 3840x2160 streams cycled from the
+  committed 4K fixtures (``tests/data/torch_vardct``) plus a ragged and
+  a 16-bit stream; and the variable-block one (every effort >= 5
+  encode), 8 3840x2160 streams cycled from the committed effort-5 and
+  effort-7 4K fixtures (``tests/data/torch_vardct_var``) plus a ragged
+  and a small graphics stream, eight distinct 512x512 streams of one
+  filter setting and different strategy classes (one chunk) and
+  ``profiling/bench_e7_stream.jxl``. The host stage runs on
+  decode_many's pool of one process a core. Every output is held
+  within +-1 per 8-bit sample (+-4 per 16-bit sample) of the port's
+  host ``decode``, and the pool's staging arrays must equal those
+  staged in this process bit for bit.
 
 Phases: environment, build (nvcc for sm_90a, one process per kernel
 source, all at once, + the native host library), the pack kernel and
 the Gaborish/EPF kernels against their plain PyTorch versions at the
 shapes of the main paths, the encode path (with launch counts and the
-batch rate), its host decode check, the decode path (with launch counts,
-the batch rate and the device-only time), and a check that neither JAX
-nor the JAX package was imported. The last two lines are the kernels'
-JSON record and ``{"ok": true, "device": ...}``. Any failure raises and
-exits non-zero before those lines. The script reaches the codec only
-through ``libjxl_torch`` (and ``bench.make_image`` for its photos).
+batch rate), its host decode check, the two decode batches (each with
+launch counts, the chunks handed to the device, the batch rate, the
+host-stage and the device-only time; the var batch also with one
+``torch.profiler`` run), their host decode check, the host stage alone
+on the pool and on threads, and a check that neither JAX nor the JAX
+package was imported. The last two lines are the kernels' JSON record
+and ``{"ok": true, "device": ...}``. Any failure raises and exits
+non-zero before those lines. The script reaches the codec only through
+``libjxl_torch`` (and ``bench.make_image`` for its photos).
 
 Run from the repository root, on a machine with a CUDA card:
 
@@ -37,6 +48,7 @@ another checkout, it times that checkout's kernels on the same card.
 import hashlib
 import json
 import os
+import pickle
 import statistics
 import subprocess
 import sys
@@ -52,6 +64,11 @@ FILTERS_SOURCE = "libjxl_torch/csrc/filters.cu"
 GAB_REPLACES = "libjxl_tpu/models/pallas_filters.py:72"
 EPF_REPLACES = "libjxl_tpu/models/pallas_filters.py:85"
 FIXTURES = os.path.join("tests", "data", "torch_vardct")
+VAR_FIXTURES = os.path.join("tests", "data", "torch_vardct_var")
+# the repo's pinned effort-7 stream, with its manifest entry
+E7_STREAM = os.path.join("profiling", "bench_e7_stream.jxl")
+E7_META = dict(h=768, w=1024, bits=8, gab=1, epf_iters=1, sha256=(
+    "38339173bd8ea70e199651b24819d944309e4292a97e7995a3d8790c18a4bbd7"))
 DEVICE = "cuda:0"
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
 FP32_FLOPS = 67e12            # H100 SXM float32 outside the tensor cores
@@ -234,13 +251,14 @@ def phase_filters(dev, card: str) -> dict:
     return out
 
 
-def load_fixtures() -> tuple[dict, dict]:
-    """The committed VarDCT streams, each checked against its sha256."""
-    with open(os.path.join(FIXTURES, "manifest.json")) as f:
+def load_fixtures(directory: str) -> tuple[dict, dict]:
+    """The committed VarDCT streams of ``directory`` (by the name in its
+    manifest), each checked against its sha256."""
+    with open(os.path.join(directory, "manifest.json")) as f:
         manifest = json.load(f)
     streams = {}
     for name, m in manifest.items():
-        with open(os.path.join(FIXTURES, name), "rb") as f:
+        with open(os.path.join(directory, name), "rb") as f:
             data = f.read()
         if hashlib.sha256(data).hexdigest() != m["sha256"]:
             raise AssertionError(f"fixture {name} does not match its sha256")
@@ -248,46 +266,114 @@ def load_fixtures() -> tuple[dict, dict]:
     return manifest, streams
 
 
-def phase_vardct_decode(dev, card: str) -> dict:
-    """The VarDCT serving decode: 8 4K streams cycled from the fixtures
-    plus the ragged and 16-bit ones through decode_many on the card,
-    with the launch counts of that run; every frame on the device, every
-    output within +-1 per 8-bit sample (+-4 per 16-bit sample) of the
-    host decode; the warm batch rate and the device-only time."""
-    import multiprocessing
-    from concurrent.futures import ProcessPoolExecutor
+def decode_batches() -> dict:
+    """The two decode batches: label -> (names, streams, manifest). Each
+    is 8 3840x2160 streams cycled from the batch's 4K fixtures, then its
+    other streams."""
+    batches = {}
+    for label, directory in (("dct8", FIXTURES), ("var", VAR_FIXTURES)):
+        manifest, streams = load_fixtures(directory)
+        photos = sorted(n for n in manifest if n.startswith("photo4k"))
+        names = [photos[i % len(photos)] for i in range(8)] + sorted(
+            n for n in manifest if not n.startswith("photo4k"))
+        if label == "var":
+            with open(E7_STREAM, "rb") as f:
+                streams[E7_STREAM] = f.read()
+            if hashlib.sha256(streams[E7_STREAM]).hexdigest() != \
+                    E7_META["sha256"]:
+                raise AssertionError(f"{E7_STREAM} does not match its "
+                                     "sha256")
+            manifest[E7_STREAM] = E7_META
+            names.append(E7_STREAM)
+        batches[label] = (names, [streams[n] for n in names], manifest)
+    return batches
 
+
+def _profile(run, card: str) -> None:
+    """One run under torch.profiler: the device's busy ms (the union of
+    its kernels' and copies' time spans), its idle share of the run's
+    wall time and the device ops that took the most time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    spans = sorted((e.time_range.start, e.time_range.end, e.name)
+                   for e in prof.events() if e.device_type == DeviceType.CUDA)
+    if not spans:
+        print("profiled warm var batch: the profiler gave no device events; "
+              "busy time and idle share not measured", flush=True)
+        return
+    busy_us, end = 0.0, float("-inf")
+    by_name: dict = {}
+    for t_start, t_end, name in spans:
+        if t_end > end:
+            busy_us += t_end - max(t_start, end)
+            end = t_end
+        n, us = by_name.get(name[:80], (0, 0.0))
+        by_name[name[:80]] = (n + 1, us + t_end - t_start)
+    top = sorted(((us / 1e3, n, name) for name, (n, us) in by_name.items()),
+                 reverse=True)[:10]
+    busy_ms = busy_us / 1e3
+    print(f"profiled warm var batch: wall {wall_ms} ms, device busy "
+          f"{busy_ms} ms ({len(spans)} device events), idle share "
+          f"{1 - busy_ms / wall_ms}; top device ops (ms, count, name): "
+          f"{top}, on {card}", flush=True)
+
+
+def phase_decode_batch(dev, card: str, label: str, batch) -> tuple:
+    """One decode batch through decode_many on the card, with the launch
+    counts of that run: every frame on the device, the Gaborish and
+    per-pass EPF launches those of the streams' headers; then the warm
+    batch rate three times, the host stage of its 4K streams one after
+    another and their device-only time. Returns (counts, outputs)."""
     import torch
 
-    from libjxl_torch.api.decoder import (
-        _device_decode_inputs, decode, decode_many,
-    )
+    from libjxl_torch.api.decoder import _device_decode_inputs, decode_many
     from libjxl_torch.models.filter_kernels import (
         epf_filter, gaborish_filter,
     )
-    from libjxl_torch.models.vardct_decode import decode_frames_device
+    from libjxl_torch.models import vardct_decode
 
-    manifest, fixtures = load_fixtures()
-    photos = sorted(n for n in manifest if n.startswith("photo4k"))
-    names = [photos[i % len(photos)] for i in range(8)] + sorted(
-        n for n in manifest if not n.startswith("photo4k"))
-    batch = [fixtures[n] for n in names]
+    names, streams, manifest = batch
+    # the chunks decode_many hands to the device, recorded by name
+    chunks = []
+
+    def recording(fn):
+        def run(inputs, *a, **k):
+            chunks.append((fn.__name__, len(inputs)))
+            return fn(inputs, *a, **k)
+        return run
+
+    originals = (vardct_decode.decode_frames_device,
+                 vardct_decode.decode_frames_device_var)
+    vardct_decode.decode_frames_device, \
+        vardct_decode.decode_frames_device_var = map(recording, originals)
     decode_many.device_frames = 0
     gaborish_filter.launches = 0
     epf_filter.launches = 0
     epf_filter.pass_launches = [0, 0, 0]
-    t0 = time.perf_counter()
-    outs = decode_many(batch, device=dev)
-    t_cold = time.perf_counter() - t0
+    try:
+        t0 = time.perf_counter()
+        outs = decode_many(streams, device=dev)
+        t_cold = time.perf_counter() - t0
+    finally:
+        vardct_decode.decode_frames_device, \
+            vardct_decode.decode_frames_device_var = originals
     counts = dict(device_frames=decode_many.device_frames,
                   gaborish=gaborish_filter.launches,
                   epf=epf_filter.launches,
                   epf_passes=list(epf_filter.pass_launches))
-    print(f"decode path: {len(batch)} streams in {t_cold} s (cold), "
+    print(f"{label} decode: {len(streams)} streams in {t_cold} s (cold), "
           f"counts {counts}", flush=True)
-    if counts["device_frames"] != len(batch):
-        raise AssertionError("decode_many reconstructed "
-                             f"{counts['device_frames']} of {len(batch)} "
+    if counts["device_frames"] != len(streams):
+        raise AssertionError(f"{label}: decode_many reconstructed "
+                             f"{counts['device_frames']} of {len(streams)} "
                              "frames on the device")
     if counts["gaborish"] <= 0 or min(counts["epf_passes"]) <= 0:
         raise AssertionError(f"a filter kernel was not launched: {counts}")
@@ -296,66 +382,154 @@ def phase_vardct_decode(dev, card: str) -> dict:
                 epf_passes=[sum(manifest[n]["epf_iters"] >= k for n in names)
                             for k in (3, 1, 2)])
     if [counts["gaborish"], counts["epf_passes"]] != list(want.values()):
-        raise AssertionError(f"filter launches {counts}, want {want}")
+        raise AssertionError(f"{label}: filter launches {counts}, want "
+                             f"{want}")
+    # frames of one shape, filter setting and bit depth share chunks of
+    # 8, whatever their strategy classes
+    settings: dict = {}
+    for n in names:
+        m = manifest[n]
+        settings.setdefault((m["h"], m["w"], m["gab"], m["epf_iters"],
+                             m["bits"]), []).append(n)
+    fn = "decode_frames_device_var" if label == "var" else \
+        "decode_frames_device"
+    want_chunks = sorted((fn, min(8, len(v) - c)) for v in settings.values()
+                         for c in range(0, len(v), 8))
+    print(f"{label} decode: chunks {chunks}", flush=True)
+    if sorted(chunks) != want_chunks:
+        raise AssertionError(f"{label}: chunks {sorted(chunks)}, want "
+                             f"{want_chunks}")
 
     mp = sum(manifest[n]["h"] * manifest[n]["w"] for n in names) / 1e6
     rates = []
     for _ in range(3):
         t0 = time.perf_counter()
-        again = decode_many(batch, device=dev)
+        again = decode_many(streams, device=dev)
         rates.append(mp / (time.perf_counter() - t0))
     if not all(np.array_equal(a, b) for a, b in zip(again, outs)):
-        raise AssertionError("a repeated decode gave other pixels")
-    print(f"decode batch ({len(batch)} streams, {mp} MP, host stage "
-          f"included): {rates} MP/s (median {statistics.median(rates)}), "
-          f"on {card}", flush=True)
+        raise AssertionError(f"{label}: a repeated decode gave other pixels")
+    print(f"{label} decode batch ({len(streams)} streams, {mp} MP, host "
+          f"stage on the pool included): {rates} MP/s (median "
+          f"{statistics.median(rates)}), on {card}", flush=True)
+    if label == "var":
+        _profile(lambda: decode_many(streams, device=dev), card)
 
-    # device only: the frames' host stage done, decode_frames_device
-    # from the numpy inputs (their upload included) to the integer image
+    # device only: the frames' host stage done, the reconstruction from
+    # the numpy inputs (their upload included) to the integer image
     t0 = time.perf_counter()
-    prepped = [_device_decode_inputs(fixtures[n]) for n in names[:8]]
-    print(f"host stage (parse + native AC decode), the 8 photo streams "
-          f"one after another: {(time.perf_counter() - t0) * 1e3} ms",
-          flush=True)
+    prepped = [_device_decode_inputs(s) for s in streams[:8]]
+    host_ms = (time.perf_counter() - t0) * 1e3
+    print(f"{label} host stage (parse + native AC decode), the 8 4K "
+          f"streams one after another: {host_ms} ms ({host_ms / 8} ms a "
+          f"stream), on {card}", flush=True)
+    # what the pool sends back a frame: the nonzero coefficients only
+    nnz = sum(len(c[0]) for fr, _, _ in prepped for c in (
+        fr.classes.values() if hasattr(fr, "classes") else [fr]))
+    total = sum(3 * k[2] * k[3] * 64 for _, k, _ in prepped)
+    pickled = sum(len(pickle.dumps(p, protocol=5)) for p in prepped)
+    print(f"{label} staging of the 8 4K frames: {nnz} nonzero of {total} "
+          f"coefficients ({nnz / total}), {pickled / 8e6} MB pickled a "
+          "frame", flush=True)
     groups: dict = {}
     for fr, key, lf in prepped:
-        groups.setdefault(key, (lf, []))[1].append(fr)
+        groups.setdefault(key[:8], (lf, []))[1].append(fr)
 
     def device_only():
         for key, (lf, frs) in groups.items():
-            decode_frames_device(frs, lf, key[4], key[5], key[0], key[1],
-                                 (1 << key[6]) - 1, dev, fetch=False)
+            fn = vardct_decode.decode_frames_device_var \
+                if key[7:8] == ("var",) else vardct_decode.decode_frames_device
+            fn(frs, lf, key[4], key[5], key[0], key[1], (1 << key[6]) - 1,
+               dev, fetch=False)
 
     dev_ms = _time_ms(device_only, 3)
     mp8 = sum(manifest[n]["h"] * manifest[n]["w"] for n in names[:8]) / 1e6
-    print(f"decode_frames_device, the 8 photo frames already parsed "
+    print(f"{label} device only, the 8 4K frames already parsed "
           f"({mp8} MP): {dev_ms} ms ({mp8 / dev_ms * 1e3} MP/s), "
           f"on {card}", flush=True)
+    del prepped, groups
+    torch.cuda.empty_cache()
+    return counts, outs
 
-    # the host decode of each distinct stream, in spawned workers
-    distinct = sorted(set(names))
+
+def phase_host_check(batches: dict, outputs: dict) -> None:
+    """Every decode output within +-1 per 8-bit sample (+-4 per 16-bit
+    sample) of the host decode of its stream, which runs in spawned
+    workers."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    from libjxl_torch.api.decoder import decode
+
+    distinct = {}
+    for names, streams, _ in batches.values():
+        distinct.update(zip(names, streams))
+    order = sorted(distinct)
     t0 = time.perf_counter()
     with ProcessPoolExecutor(
-            max_workers=min(len(distinct), os.cpu_count() or 1),
+            max_workers=min(len(order), os.cpu_count() or 1),
             mp_context=multiprocessing.get_context("spawn")) as ex:
-        host = dict(zip(distinct, ex.map(decode,
-                                         [fixtures[n] for n in distinct])))
-    worst = {}
-    for name, got in zip(names, outs):
-        want = host[name]
-        tol = 1 if manifest[name]["bits"] <= 8 else 4
-        if got.shape != want.shape or got.dtype != want.dtype:
-            raise AssertionError(f"{name}: {got.shape} {got.dtype} against "
-                                 f"the host's {want.shape} {want.dtype}")
-        diff = np.abs(got.astype(np.int64) - want.astype(np.int64))
-        worst[name] = (int(diff.max()), float((diff > 0).mean()))
-        if diff.max() > tol:
-            raise AssertionError(f"{name}: device decode differs from the "
-                                 f"host decode by {diff.max()} > {tol}")
-    print(f"decode path: every output within +-1 (8-bit) / +-4 (16-bit) "
-          f"of the host decode (max diff, share of samples that differ): "
-          f"{worst} ({time.perf_counter() - t0} s on the host)", flush=True)
-    return counts
+        host = dict(zip(order, ex.map(decode, [distinct[n] for n in order])))
+    for label, (names, _, manifest) in batches.items():
+        worst = {}
+        for name, got in zip(names, outputs[label]):
+            want = host[name]
+            tol = 1 if manifest[name]["bits"] <= 8 else 4
+            if got.shape != want.shape or got.dtype != want.dtype:
+                raise AssertionError(f"{name}: {got.shape} {got.dtype} "
+                                     f"against the host's {want.shape} "
+                                     f"{want.dtype}")
+            diff = np.abs(got.astype(np.int64) - want.astype(np.int64))
+            worst[name] = (int(diff.max()), float((diff > 0).mean()))
+            if diff.max() > tol:
+                raise AssertionError(f"{name}: device decode differs from "
+                                     f"the host decode by {diff.max()} > "
+                                     f"{tol}")
+        print(f"{label} decode: every output within +-1 (8-bit) / +-4 "
+              f"(16-bit) of the host decode (max diff, share of samples "
+              f"that differ): {worst}", flush=True)
+    print(f"host decode of {len(order)} streams: "
+          f"{time.perf_counter() - t0} s", flush=True)
+
+
+def phase_host_stage(card: str, batches: dict, workers: int) -> None:
+    """The host stage of each decode batch alone: on decode_many's pool
+    of ``workers`` processes, and for comparison on as many threads of
+    this process (not a path of the port), each way in turn, twice. The
+    pool's staging arrays must equal, bit for bit, those staged here."""
+    from libjxl_torch.api.decoder import _device_decode_inputs
+    from libjxl_torch.parallel import host_pool
+
+    for label, (_, streams, _) in batches.items():
+        stage: dict = {}
+        for way in ("processes", "threads") * 2:
+            t0 = time.perf_counter()
+            if way == "processes":
+                pooled = host_pool.map_decode_inputs(streams, workers)
+            else:
+                with ThreadPoolExecutor(workers) as ex:
+                    here = list(ex.map(_device_decode_inputs, streams))
+            stage.setdefault(f"{workers} {way}", []).append(
+                (time.perf_counter() - t0) * 1e3)
+        print(f"{label} host stage of the batch, alone (ms): {stage}, "
+              f"on {card}", flush=True)
+        for data, a, b in zip(streams, pooled, here):
+            if a[1] != b[1] or not all(
+                    np.array_equal(x, y) for x, y in
+                    zip(_leaves(a[0]), _leaves(b[0]), strict=True)):
+                raise AssertionError(f"{label}: the pool staged other "
+                                     "arrays than this process")
+        print(f"{label}: the pool's staging equals this process's, bit "
+              "for bit", flush=True)
+
+
+def _leaves(frame):
+    """The arrays of a FrameRecon or FrameReconVar, in a fixed order."""
+    for name, v in zip(frame._fields, frame):
+        if name == "classes":
+            for s in sorted(v):
+                yield from (np.asarray(a) for a in v[s])
+        else:
+            yield np.asarray(v)
 
 
 def main_path_images() -> tuple[list, dict]:
@@ -411,8 +585,8 @@ def build_kernels(sources) -> None:
 
 def filter_records(filters: dict, counts: dict) -> list:
     """The kernels-line records of Gaborish and of each EPF pass, with the
-    launches of the decode path's run (``counts``; None where it was not
-    driven)."""
+    launches of the decode batches' runs (``counts``; None where they were
+    not driven)."""
     recs = [dict(name="gaborish", route="cuda", source=FILTERS_SOURCE,
                  replaces=GAB_REPLACES, launches=counts.get("gaborish"),
                  **filters["gab"])]
@@ -437,6 +611,7 @@ def main() -> None:
         EncodeOptions, encode_lossless, encode_lossless_many, native_lib,
     )
     from libjxl_torch.models.pack_kernel import pack_chunks
+    from libjxl_torch.parallel import host_pool
 
     # 1. environment
     card = card_line()
@@ -503,8 +678,22 @@ def main() -> None:
           f"(median {statistics.median(rates)}), {bpp} bpp, "
           f"on {card}", flush=True)
 
-    # 5. the decode path
-    counts = phase_vardct_decode(dev, card)
+    # 5. the decode path: the DCT8 batch, the variable-block batch, their
+    # host decode check and both with the process-pool host stage
+    batches = decode_batches()
+    workers = os.cpu_count() or 1
+    t0 = time.perf_counter()
+    host_pool.warm(workers)
+    print(f"decode_many's host pool of {workers} processes warm in "
+          f"{time.perf_counter() - t0} s", flush=True)
+    counts, outputs = {}, {}
+    for label, dbatch in batches.items():
+        counts[label], outputs[label] = phase_decode_batch(dev, card, label,
+                                                           dbatch)
+    phase_host_check(batches, outputs)
+    del outputs
+    phase_host_stage(card, batches, workers)
+    host_pool.shutdown()
 
     # 6. decode every lossless stream on the host
     jobs = ([(n, s, im) for n, s, im in zip(names, streams, batch)]
@@ -522,10 +711,14 @@ def main() -> None:
     # 8. results
     print(card_line(), flush=True)
     rec["bound_share"] = rec["bound_ms"] / rec["ms"]
+    # the filter launches of both decode batches
+    both = dict(gaborish=sum(c["gaborish"] for c in counts.values()),
+                epf_passes=[sum(c["epf_passes"][p] for c in counts.values())
+                            for p in range(3)])
     print(json.dumps({"kernels": [
         dict(name="pack_chunks", route="cuda", source=PACK_SOURCE,
              replaces=PACK_REPLACES, launches=launches, **rec),
-    ] + filter_records(filters, counts)}), flush=True)
+    ] + filter_records(filters, both)}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -875,11 +875,13 @@ def _blend_frame(canvas, img, fh, x0, y0, meta, refs=None):
 
 def _device_decode_inputs(data: bytes):
     """Host half of the device decode: parse + native entropy decode one
-    stream into a FrameRecon (models/vardct_decode.py), plus the
-    (shape, filters) batch key. Returns None when the stream needs the
-    general path (non-DCT8 strategies, features, extra channels, ...)."""
+    stream into a FrameRecon (all-DCT8) or a FrameReconVar (variable
+    block sizes; models/vardct_decode.py), plus the batch key (shape,
+    filters, bit depth, and for a var frame "var" and its strategy
+    classes). Returns None when the stream needs the general path
+    (features, extra channels, AC tables other than the defaults, ...)."""
     from libjxl_torch.api.container import extract_codestream
-    from libjxl_torch.models.vardct_decode import FrameRecon
+    from libjxl_torch.models.vardct_decode import FrameRecon, FrameReconVar
     from libjxl_torch.utils import native
     from libjxl_torch.vardct.frame_dec import VarDCTFrameDecoder
 
@@ -929,6 +931,10 @@ def _device_decode_inputs(data: bytes):
             for g in range(fd.num_groups)}
     if dec.jpeg_mode:
         return None
+    # the device dequantizes with the default AC tables (one table for
+    # the whole batch): a stream that signals its own goes to the host
+    if not dec.matrices.encodings_default:
+        return None
     lf = fh.loop_filter
     key = (meta.ysize, meta.xsize, yb, xb, bool(lf.gab), int(lf.epf_iters),
            bits)
@@ -941,22 +947,33 @@ def _device_decode_inputs(data: bytes):
     if sparse_pairs is None:
         dense_buf = None if is_var else np.zeros((3, yb, xb, 64), np.int32)
         # all AC sections in ONE native call (std::threads over groups)
-        if dec.decode_ac_frame_native(sections, dense_buf=dense_buf) is None:
+        groups = dec.decode_ac_frame_native(sections, dense_buf=dense_buf)
+        if groups is None:
             return None
     if dec.mfd.full_image is not None and dec.mfd.full_image.channel:
         return None
+    x_dm = (1 / 1.25) ** (fh.x_qm_scale - 2.0)
+    b_dm = (1 / 1.25) ** (fh.b_qm_scale - 2.0)
     if is_var:
-        # a stream the reference's _decode_batch_var would take; that
-        # device program is not ported, and decode_many raises on "var"
-        return None, key + ("var",), lf
+        classes = _var_classes([groups[g] for g in sorted(groups)],
+                               dec.raw_quant)
+        fr = FrameReconVar(
+            classes=classes,
+            dc=dec.dc.astype(np.float32),
+            raw_quant=dec.raw_quant, sharpness=dec.epf_sharpness,
+            x_cc=dec.cmap.ytox_ratio_arr(dec.ytox_map),
+            b_cc=dec.cmap.ytob_ratio_arr(dec.ytob_map),
+            inv_gs=np.float32(dec.quantizer.inv_global_scale),
+            dms=np.asarray([x_dm, 1.0, b_dm], np.float32),
+            quant_scale=np.float32(dec.quantizer.scale),
+            intensity=np.float32(meta.m.tone_mapping.intensity_target))
+        return fr, key + ("var", tuple(sorted(classes))), lf
     if sparse_pairs is not None:
         nz, vals = sparse_pairs
     else:
         nz, vals = native.sparsify_i32(dense_buf)
     if len(vals) and np.abs(vals).max() > 32767:
         return None           # host path for absurd coefficients
-    x_dm = (1 / 1.25) ** (fh.x_qm_scale - 2.0)
-    b_dm = (1 / 1.25) ** (fh.b_qm_scale - 2.0)
     fr = FrameRecon(
         coeff_vals=vals.astype(np.int16),
         coeff_idx=nz,
@@ -975,6 +992,63 @@ def _device_decode_inputs(data: bytes):
     return fr, key, lf
 
 
+def _var_classes(runs: list, raw_quant: np.ndarray) -> dict:
+    """The nonzero quantized coefficients of a variable-block frame, per
+    AC strategy class, from the native decoder's run-packed groups
+    ``(bx0, by0, w, h, acs, anchors, coeffs)``: ``{s: (vals, idx, qf, fy,
+    fx)}``. A class's blocks are numbered group by group, in raster order
+    within a group (the reference's order); ``idx`` is the flat index of
+    each value in that class's dense (n, 3, 64 * covered blocks) array in
+    the stored layout, and ``vals`` is int16 unless a value of the class
+    exceeds it. Most of a photo's coefficients are zero at the usual
+    distances, so this is far smaller than the dense classes."""
+    from libjxl_torch.utils import native
+    from libjxl_torch.vardct.ac_strategy import COVERED_X, COVERED_Y
+
+    cover = np.asarray(COVERED_X, np.int64) * np.asarray(COVERED_Y) * 64
+    blk_s, blk_y, blk_x = [], [], []
+    nz_blk, nz_ch, nz_k, nz_v = [], [], [], []
+    n_blk = 0
+    for (bx0, by0, _, _, acs_g, anc_g, coeffs) in runs:
+        ys, xs = np.nonzero(anc_g)
+        s = acs_g[ys, xs]
+        off = np.cumsum(cover[s]) - cover[s]  # each block's first coeff
+        flat, v = native.sparsify_i32(coeffs, n_threads=1)
+        ch, pos = np.divmod(flat.astype(np.int64), coeffs.shape[1])
+        b = np.searchsorted(off, pos, "right") - 1
+        nz_blk.append(b + n_blk)
+        nz_ch.append(ch)
+        nz_k.append(pos - off[b])
+        nz_v.append(v)
+        blk_s.append(s)
+        blk_y.append(by0 + ys)
+        blk_x.append(bx0 + xs)
+        n_blk += len(s)
+    blk_s = np.concatenate(blk_s)
+    blk_y = np.concatenate(blk_y).astype(np.int32)
+    blk_x = np.concatenate(blk_x).astype(np.int32)
+    nz_blk, nz_ch, nz_k, nz_v = (np.concatenate(a) for a in
+                                 (nz_blk, nz_ch, nz_k, nz_v))
+    # number each block within its class, keeping the blocks' order
+    order = np.argsort(blk_s, kind="stable")
+    present, first, count = np.unique(blk_s[order], return_index=True,
+                                      return_counts=True)
+    rank = np.empty(n_blk, np.int64)
+    rank[order] = np.arange(n_blk) - np.repeat(first, count)
+    nz_s = blk_s[nz_blk]
+    classes = {}
+    for s, f0, n in zip(present.tolist(), first, count):
+        blocks = order[f0:f0 + n]
+        sel = nz_s == s
+        vals = nz_v[sel]
+        if np.abs(vals).max(initial=0) <= 32767:
+            vals = vals.astype(np.int16)
+        idx = (rank[nz_blk[sel]] * 3 + nz_ch[sel]) * cover[s] + nz_k[sel]
+        fy, fx = blk_y[blocks], blk_x[blocks]
+        classes[s] = (vals, idx, raw_quant[fy, fx], fy, fx)
+    return classes
+
+
 def _group_rect(fd, g: int):
     gdb = fd.group_dim // 8
     gx, gy = g % fd.xsize_groups, g // fd.xsize_groups
@@ -983,54 +1057,58 @@ def _group_rect(fd, g: int):
         min(gdb, fd.ysize_blocks - by0)
 
 
-def decode_many(streams, workers: int = 3, device=None,
+def decode_many(streams, workers: int | None = None, device=None,
                 fetch: bool = True) -> list:
     """Serving-mode decode of a batch of independent codestreams.
 
-    Host threads run the serial half (parse + native rANS,
-    ``_device_decode_inputs``) in parallel; frames of the same key
-    (shape, filters, bit depth) are then reconstructed on ``device`` in
-    chunks of 8 by ``models.vardct_decode.decode_frames_device``, and
+    The host half (parse + native AC decode, ``_device_decode_inputs``)
+    runs on a pool of ``workers`` spawned processes, one a core by
+    default (``parallel/host_pool.py``: the pool persists across calls,
+    and a failure of the pool raises). Frames of one shape, filter
+    setting and bit depth are then reconstructed on ``device`` in chunks
+    of 8 by ``models.vardct_decode.decode_frames_device`` (all-DCT8
+    frames) or ``decode_frames_device_var`` (variable block sizes: every
+    effort >= 5 encode, whatever strategy classes each frame uses), and
     only the integer images come back. ``decode_many.device_frames``
     counts the frames the device reconstructed. Streams the device
     program does not take (modular, not 4:4:4, image features, extra
-    channels, ...) decode on the host with ``decode``. Variable-block
-    VarDCT streams raise ``NotImplementedError``: their device program
-    is not ported yet.
+    channels, AC tables other than the defaults, ...) decode on the host
+    with ``decode``, on the same pool.
 
     With ``fetch=False`` a device frame is returned as its (h, w, 3)
     device tensor (see ``decode_frames_device``)."""
-    from concurrent.futures import ThreadPoolExecutor
+    import os
 
     from libjxl_torch.config import resolve_device
-    from libjxl_torch.models.vardct_decode import decode_frames_device
+    from libjxl_torch.models.vardct_decode import (
+        decode_frames_device, decode_frames_device_var,
+    )
+    from libjxl_torch.parallel import host_pool
 
     if not streams:
         return []
     device = resolve_device(device)
-    with ThreadPoolExecutor(max(1, workers)) as ex:
-        prepped = list(ex.map(
-            lambda s: _try(_device_decode_inputs, s), streams))
+    workers = workers or os.cpu_count() or 1
+    prepped = host_pool.map_decode_inputs(streams, workers)
+    # frames of one shape, filters and bit depth go together; var frames
+    # of different strategy classes too (each class runs over the chunk)
     by_key: dict = {}
     for i, p in enumerate(prepped):
-        if p is None:
-            continue
-        if len(p[1]) > 7 and p[1][7] == "var":
-            raise NotImplementedError(
-                "variable-block VarDCT streams have no device decode in "
-                "libjxl_torch yet (ROADMAP A3: _decode_batch_var)")
-        by_key.setdefault(p[1], []).append(i)
+        if p is not None:
+            by_key.setdefault(p[1][:8], []).append(i)
     results: list = [None] * len(streams)
     chunk_n = 8
     for key, idxs in by_key.items():
-        h, w, yb, xb, gab, epf_iters, bits = key
+        h, w, yb, xb, gab, epf_iters, bits = key[:7]
+        fn = decode_frames_device_var if key[7:8] == ("var",) \
+            else decode_frames_device
         lf = prepped[idxs[0]][2]
         # every chunk is enqueued before the first fetch, so the device
         # works on chunk i+1 while chunk i's image is copied back
         pending = []
         for c0 in range(0, len(idxs), chunk_n):
             chunk = idxs[c0:c0 + chunk_n]
-            pending.append((chunk, decode_frames_device(
+            pending.append((chunk, fn(
                 [prepped[i][0] for i in chunk], lf, gab, epf_iters, h, w,
                 maxval=(1 << bits) - 1, device=device, fetch=False)))
             decode_many.device_frames += len(chunk)
@@ -1043,21 +1121,14 @@ def decode_many(streams, workers: int = 3, device=None,
                 results[i] = out[j]
     rest = [i for i, p in enumerate(prepped) if p is None]
     if rest:
-        with ThreadPoolExecutor(max(1, workers)) as ex:
-            for i, o in zip(rest, ex.map(decode,
-                                         [streams[i] for i in rest])):
-                results[i] = o
+        host = host_pool.get_pool(workers).map(decode,
+                                               [streams[i] for i in rest])
+        for i, o in zip(rest, host):
+            results[i] = o
     return results
 
 
 decode_many.device_frames = 0
-
-
-def _try(fn, *a):
-    try:
-        return fn(*a)
-    except FormatError:
-        return None
 
 
 def decode(data: bytes) -> np.ndarray:

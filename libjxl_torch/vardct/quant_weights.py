@@ -221,6 +221,7 @@ class DequantMatrices:
     def decode(self, r: BitReader, modular_frame_decoder=None) -> None:
         """AC-global matrices (quant_weights.cc:493-511)."""
         all_default = r.read(1) == 1
+        self.encodings_default = all_default
         if all_default:
             return
         for i in range(NUM_QUANT_TABLES):

@@ -123,3 +123,26 @@ def test_filter_kernels_match_plain_on_card(shape, which):
         assert epf_filter.pass_launches[which] == before + 1
         want = epf_ref(x, *args)
     assert float((got - want).abs().max()) <= 1e-5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("gab,epf_iters", [(False, 0), (True, 3)])
+def test_decode_frames_device_var_card_matches_cpu(gab, epf_iters):
+    """Variable-block reconstruction of frames that use all 27 AC
+    strategies on the card against the same on the CPU (the kernels'
+    plain versions), within +-1 per sample."""
+    from libjxl_torch.core.frame_header import LoopFilter
+    from libjxl_torch.models.filter_kernels import gaborish_filter
+    from libjxl_torch.models.vardct_decode import decode_frames_device_var
+    from _torch_var_frames import synthetic_frames
+    dev = _card()
+    frames = synthetic_frames()
+    before = gaborish_filter.launches
+    got = decode_frames_device_var(frames, LoopFilter(), gab, epf_iters,
+                                   256, 256, device=dev)
+    assert gaborish_filter.launches - before == (len(frames) if gab else 0)
+    want = decode_frames_device_var(frames, LoopFilter(), gab, epf_iters,
+                                    256, 256, device="cpu")
+    for g, r in zip(got, want, strict=True):
+        assert g.shape == r.shape == (256, 256, 3)
+        assert np.abs(g.astype(int) - r.astype(int)).max() <= 1

@@ -34,15 +34,15 @@ render/blending render/enc_patches render/noise render/patches
 render/splines render/upsample render/upsample_weights utils/bits
 vardct/ac_context vardct/ac_strategy vardct/afv_basis vardct/cfl
 vardct/coeff_order vardct/dct vardct/enc_transforms_small
-vardct/frame_dec vardct/quant_tables_data vardct/quant_weights
-vardct/transforms_small""".split()
+vardct/frame_dec vardct/quant_tables_data vardct/transforms_small
+""".split()
 
 # copied without their jax branches: (top-level names whose text
 # differs, top-level names dropped); every other name is the original's
 EDITED = {
     "api/decoder": ({"decode_vardct_frame", "decode_rows",
                      "_device_decode_inputs", "_decode_unoriented",
-                     "decode_many"}, set()),
+                     "decode_many"}, {"_try"}),
     "api/encoder": ({"encode_lossless", "encode_lossless_device",
                      "encode_lossless_many", "encode_lossless_device_prefix",
                      "_prefix_pass1", "_prefix_pass2", "_prefix_upload",
@@ -53,6 +53,16 @@ EDITED = {
                         {"DeviceRestoreStage", "BandedDeviceRestoreStage"}),
     "utils/native": ({"_build", "get_lib"}, set()),
     "config": ({"RuntimeConfig"}, {"device_filters_enabled"}),
+    # workers hide the CUDA card instead of pinning jax to the CPU, the
+    # native library is built before the spawn, a pool of another size
+    # is made anew, a pool failure raises, and the caller always names
+    # the number of workers
+    "parallel/host_pool": ({"_worker_init", "_decode_inputs_task",
+                            "get_pool", "_warm_task", "warm",
+                            "map_decode_inputs"}, {"default_workers"}),
+    # DequantMatrices.decode records whether the stream signalled the
+    # default AC tables (the reference never clears encodings_default)
+    "vardct/quant_weights": ({"DequantMatrices"}, set()),
 }
 
 # the port's own modules that mirror a reference module's name

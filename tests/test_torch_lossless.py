@@ -250,7 +250,7 @@ for im, s in zip(imgs + imgs[:1], outs):
     assert np.array_equal(decode(s).reshape(im.shape), im)
 with open("tests/data/torch_vardct/rgb16_301x517.jxl", "rb") as f:
     lossy = f.read()
-dev = decode_many([lossy], device="cpu")[0]
+dev = decode_many([lossy], workers=2, device="cpu")[0]
 host = decode(lossy)
 assert dev.shape == host.shape == (301, 517, 3)
 assert np.abs(dev.astype(int) - host.astype(int)).max() <= 4

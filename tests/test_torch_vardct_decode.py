@@ -81,7 +81,7 @@ def test_decode_many_matches_jax_device_decode(h, w, jax_device_decode):
                for i, (gab, epf) in enumerate([(1, 3), (1, 2), (0, 1)])]
     batch = streams + streams[:1]
     before = port.decode_many.device_frames
-    got = port.decode_many(batch, device="cpu")
+    got = port.decode_many(batch, workers=2, device="cpu")
     assert port.decode_many.device_frames - before == len(batch)
     want = jax_device_decode(batch)
     for g, r in zip(got, want):
@@ -92,7 +92,7 @@ def test_decode_many_matches_jax_device_decode(h, w, jax_device_decode):
 
 def test_decode_many_16bit(jax_device_decode):
     data = _stream(20, 64, 96, 1, 3, bits=16)
-    got = port.decode_many([data, data], device="cpu")
+    got = port.decode_many([data, data], workers=2, device="cpu")
     want = jax_device_decode([data, data])
     assert got[0].dtype == want[0].dtype == np.uint16
     assert np.abs(got[0].astype(int) - want[0].astype(int)).max() <= 4
@@ -109,7 +109,7 @@ def test_fetch_false_returns_the_device_tensor():
     h, w, _, _, gab, epf_iters, bits = key
     got = decode_frames_device([fr, fr], lf, gab, epf_iters, h, w,
                                device="cpu")
-    t = port.decode_many([data], device="cpu", fetch=False)[0]
+    t = port.decode_many([data], workers=2, device="cpu", fetch=False)[0]
     assert isinstance(t, torch.Tensor) and t.dtype == torch.uint8
     assert len(got) == 2 and got[0].shape == (48, 80, 3)
     np.testing.assert_array_equal(t.numpy(), got[0])
@@ -124,20 +124,12 @@ def test_decode_many_sends_other_streams_to_the_host():
     lossless = encode_lossless(img, EncodeOptions(effort=2))
     lossy = _stream(31, 40, 56, 1, 1)
     before = port.decode_many.device_frames
-    got = port.decode_many([lossless, lossy], device="cpu")
+    got = port.decode_many([lossless, lossy], workers=2, device="cpu")
     assert port.decode_many.device_frames - before == 1
     np.testing.assert_array_equal(got[0], img)
     assert np.abs(got[1].astype(int)
                   - port.decode(lossy).astype(int)).max() <= 1
-    assert port.decode_many([], device="cpu") == []
-
-
-def test_variable_block_stream_raises():
-    data = _stream(40, 128, 192, -1, -1, effort=5, distance=2.0)
-    key = ref._device_decode_inputs(data)[1]
-    assert key[7] == "var"
-    with pytest.raises(NotImplementedError, match="_decode_batch_var"):
-        port.decode_many([data], device="cpu")
+    assert port.decode_many([], workers=2, device="cpu") == []
 
 
 def test_host_decode_equals_jax_decode():
