@@ -451,10 +451,18 @@ def phase_decode_batch(dev, card: str, label: str, batch) -> tuple:
     return counts, outs
 
 
+def _host_filters() -> None:
+    """Worker initializer: ``decode`` filters on the host in float64 at
+    every frame size, and the card stays hidden."""
+    os.environ["CUDA_VISIBLE_DEVICES"] = ""
+    from libjxl_torch.config import config
+    config.device_filters = False
+
+
 def phase_host_check(batches: dict, outputs: dict) -> None:
     """Every decode output within +-1 per 8-bit sample (+-4 per 16-bit
-    sample) of the host decode of its stream, which runs in spawned
-    workers."""
+    sample) of the host decode of its stream (float64 filters), which
+    runs in spawned workers."""
     import multiprocessing
     from concurrent.futures import ProcessPoolExecutor
 
@@ -467,7 +475,8 @@ def phase_host_check(batches: dict, outputs: dict) -> None:
     t0 = time.perf_counter()
     with ProcessPoolExecutor(
             max_workers=min(len(order), os.cpu_count() or 1),
-            mp_context=multiprocessing.get_context("spawn")) as ex:
+            mp_context=multiprocessing.get_context("spawn"),
+            initializer=_host_filters) as ex:
         host = dict(zip(order, ex.map(decode, [distinct[n] for n in order])))
     for label, (names, _, manifest) in batches.items():
         worst = {}

@@ -5,10 +5,11 @@ Full multi-frame flow (reference ``lib/jxl/dec_frame.cc``,
 channel stacks, composited onto a canvas with the header blend mode,
 and stored into reference-frame slots for patches/animation reuse.
 
-The port's copy of ``libjxl_tpu/api/decoder.py``: ``decode`` is the host
-decoder, with the numpy (float64) restoration filters at every size.
-``decode_many`` reconstructs DCT8 4:4:4 frames on the device
-(``models/vardct_decode.py``). ``decode_exact`` checks many lossless
+The port's copy of ``libjxl_tpu/api/decoder.py``. ``decode`` is the host
+decoder; its restoration filters run on the device in float32 (the hand
+kernels) where ``config.device_filters_enabled`` says so (auto: frames
+of 4 MP and more), else in float64 numpy. ``decode_many`` reconstructs
+4:4:4 VarDCT frames on the device (``models/vardct_decode.py``). ``decode_exact`` checks many lossless
 streams against their images in spawned worker processes, because the
 host decoder reads prefix-coded modular streams symbol by symbol in
 Python (several microseconds a symbol).
@@ -194,12 +195,16 @@ def _group_pool():
 
 def decode_vardct_frame(meta: CodecMetadata, frame,
                         reference_frames=None,
-                        dc_image=None, _return_prefilter=False):
+                        dc_image=None, _return_prefilter=False,
+                        device=None):
     """Decode one VarDCT frame to a float XYB image, then apply the
     restoration filters, patches/splines, frame upsampling and noise;
     returns (3, H, W) XYB (pre-color-transform). Stage order per
     dec_cache.cc:142-217: gaborish -> EPF -> patches -> splines ->
-    upsampling -> noise."""
+    upsampling -> noise. Where the device-filter policy is on, the
+    filters run on ``device`` (default ``config.device``); with
+    ``config.device_filters`` True and nothing downstream that needs
+    host pixels, the result is returned as a device tensor."""
     from libjxl_torch.vardct.frame_dec import VarDCTFrameDecoder
     from libjxl_torch.render.filters import compute_sigma, epf_step0, \
         epf_step1, epf_step2, gaborish
@@ -336,12 +341,28 @@ def decode_vardct_frame(meta: CodecMetadata, frame,
         # the pre-filter reconstruction + decoder state lets the caller
         # re-run gaborish/EPF with candidate sharpness fields locally
         return xyb, dec, lf
+    from libjxl_torch.config import config as _cfg
     from libjxl_torch.render.pipeline import (
         build_render_pipeline, run_render_pipeline,
     )
-    stages = build_render_pipeline(fh, meta, dec)
-    ctx = dict(dec=dec, fh=fh, meta=meta, fd=fd, lf=lf)
+    from libjxl_torch.config import device_filters_enabled
+    on_device = device_filters_enabled(fd.ysize * fd.xsize) and \
+        (lf.gab or lf.epf_iters > 0)
+    # keep the result ON DEVICE when nothing downstream needs host
+    # pixels: decode() then runs the color conversion + quantization
+    # on the device and fetches only the integer image
+    keep = (on_device and _cfg.device_filters is True and
+            not (fh.flags & (FrameFlags.PATCHES | FrameFlags.SPLINES |
+                             FrameFlags.NOISE)) and
+            fh.upsampling == 1 and
+            (dec.mfd.full_image is None or
+             not dec.mfd.full_image.channel))
+    stages = build_render_pipeline(fh, meta, dec, device=on_device,
+                                   device_keep=keep)
+    ctx = dict(dec=dec, fh=fh, meta=meta, fd=fd, lf=lf, device=device)
     xyb = run_render_pipeline(stages, xyb, ctx)
+    if keep:
+        return xyb
     if dec.mfd.full_image is not None and dec.mfd.full_image.channel:
         fi = dec.mfd.finalize()
         xyb = np.asarray(xyb)
@@ -378,7 +399,7 @@ def _frame_to_float(meta: CodecMetadata, fs, refs, dc_store=None):
         dc_image = (dc_store or {}).get(fh.dc_level + 1)
         xyb = decode_vardct_frame(meta, fs, refs, dc_image)
         if not isinstance(xyb, np.ndarray):
-            xyb = np.asarray(xyb)      # multi-frame compositing is host
+            xyb = xyb.cpu().numpy()    # multi-frame compositing is host
         pre_ct = xyb
         if fh.color_transform == ColorTransform.YCBCR:
             from libjxl_torch.color.xyb import ycbcr_to_rgb
@@ -469,7 +490,8 @@ def _frame_to_float(meta: CodecMetadata, fs, refs, dc_store=None):
     return img, img
 
 
-def decode_rows(data: bytes, gy_range: tuple | None = None):
+def decode_rows(data: bytes, gy_range: tuple | None = None,
+                device=None):
     """Low-memory banded decode (low_memory_render_pipeline.cc /
     dec_group_border.h halo model): yields ``(y0, band_u8)`` tuples of
     output rows top-to-bottom, with PIXEL memory bounded by three group
@@ -481,7 +503,8 @@ def decode_rows(data: bytes, gy_range: tuple | None = None):
     a..b-1 are produced (each boundary decodes one extra neighbor band
     for its filter halo; output bytes are identical to the full run).
     This is the per-process unit of the multi-host sharded decode
-    (parallel/multihost.decode_multihost).
+    (parallel/multihost.decode_multihost). The restoration filters of a
+    band run on ``device`` where the device-filter policy is on.
 
     Supported on single-frame 4:4:4 VarDCT streams without
     patches/splines/noise/upsampling/extra channels; other streams fall
@@ -529,7 +552,7 @@ def decode_rows(data: bytes, gy_range: tuple | None = None):
         if mod is not None:
             yield from _decode_rows_modular(meta, fs, *mod)
             return
-        full = decode(data)
+        full = decode(data, device=device)
         gd = 256
         for y0 in range(0, full.shape[0], gd):
             yield y0, full[y0:y0 + gd]
@@ -581,6 +604,17 @@ def decode_rows(data: bytes, gy_range: tuple | None = None):
             # block-row slice of the per-block fields covering ext
             br0 = (gy * gd - top) // 8
             br1 = br0 + -(-ext.shape[1] // 8)
+            from libjxl_torch.config import device_filters_enabled
+            if device_filters_enabled(fd.ysize * fd.xsize):
+                # the same float32 device filters as the whole-frame
+                # path, so banded output stays bit-identical to decode()
+                from libjxl_torch.render.filters_torch import \
+                    restore_device
+                ext = restore_device(
+                    ext, lf, dec.raw_quant[br0:br1],
+                    dec.epf_sharpness[br0:br1], dec.quantizer.scale,
+                    device=device)
+                return ext[:, top:top + band.shape[1]]
             if lf.epf_iters > 0:
                 inv_sigma = compute_sigma(
                     lf, dec.acs_raw[br0:br1], dec.acs_anchor[br0:br1],
@@ -1075,6 +1109,10 @@ def decode_many(streams, workers: int | None = None, device=None,
     channels, AC tables other than the defaults, ...) decode on the host
     with ``decode``, on the same pool.
 
+    Each chunk shares its frames' loop-filter constants. A stream that
+    decodes on the host and whose filters the device-filter policy puts
+    on the device decodes in this process, on ``device``.
+
     With ``fetch=False`` a device frame is returned as its (h, w, 3)
     device tensor (see ``decode_frames_device``)."""
     import os
@@ -1084,21 +1122,23 @@ def decode_many(streams, workers: int | None = None, device=None,
         decode_frames_device, decode_frames_device_var,
     )
     from libjxl_torch.parallel import host_pool
+    from libjxl_torch.render.filters_torch import lf_key
 
     if not streams:
         return []
     device = resolve_device(device)
     workers = workers or os.cpu_count() or 1
     prepped = host_pool.map_decode_inputs(streams, workers)
-    # frames of one shape, filters and bit depth go together; var frames
-    # of different strategy classes too (each class runs over the chunk)
+    # frames of one shape, filters, loop-filter constants and bit depth
+    # go together; var frames of different strategy classes too (each
+    # class runs over the chunk)
     by_key: dict = {}
     for i, p in enumerate(prepped):
         if p is not None:
-            by_key.setdefault(p[1][:8], []).append(i)
+            by_key.setdefault((p[1][:8], lf_key(p[2])), []).append(i)
     results: list = [None] * len(streams)
     chunk_n = 8
-    for key, idxs in by_key.items():
+    for (key, _), idxs in by_key.items():
         h, w, yb, xb, gab, epf_iters, bits = key[:7]
         fn = decode_frames_device_var if key[7:8] == ("var",) \
             else decode_frames_device
@@ -1120,25 +1160,44 @@ def decode_many(streams, workers: int | None = None, device=None,
             for j, i in enumerate(chunk):
                 results[i] = out[j]
     rest = [i for i, p in enumerate(prepped) if p is None]
-    if rest:
+    # a stream whose filters the policy puts on the card decodes here, on
+    # ``device``; the others on the pool, whose workers hide the card
+    here = [i for i in rest if _filters_on_device(streams[i])]
+    pooled = [i for i in rest if i not in here]
+    if pooled:
         host = host_pool.get_pool(workers).map(decode,
-                                               [streams[i] for i in rest])
-        for i, o in zip(rest, host):
+                                               [streams[i] for i in pooled])
+        for i, o in zip(pooled, host):
             results[i] = o
+    for i in here:
+        results[i] = decode(streams[i], device=device)
     return results
+
+
+def _filters_on_device(data: bytes) -> bool:
+    """Does the device-filter policy hold for a VarDCT frame of this
+    stream (the policy ``decode_vardct_frame`` applies)."""
+    from libjxl_torch.api.container import extract_codestream
+    from libjxl_torch.config import device_filters_enabled
+    _, frames = parse_codestream(extract_codestream(data))
+    return any(f.header.encoding == FrameEncoding.VARDCT and
+               device_filters_enabled(f.dims.ysize * f.dims.xsize)
+               for f in frames)
 
 
 decode_many.device_frames = 0
 
 
-def decode(data: bytes) -> np.ndarray:
+def decode(data: bytes, device=None) -> np.ndarray:
     """Decode a JXL codestream to an (h, w, c) numpy array.
 
     Integer output at the metadata bit depth (uint8/uint16); for
     animations this is the final composited frame (use
     :func:`decode_frames` for all of them). Metadata orientation is
     applied (lib/extras exif.h semantics: the decoder rotates unless
-    the caller keeps orientation)."""
+    the caller keeps orientation). The restoration filters run on
+    ``device`` (default ``config.device``) where
+    ``config.device_filters_enabled`` says so."""
     from libjxl_torch.api.container import extract_codestream
     meta = read_codec_metadata(BitReader(extract_codestream(data)))
     from libjxl_torch.config import config as _cfg
@@ -1149,7 +1208,7 @@ def decode(data: bytes) -> np.ndarray:
         # bands land directly in the preallocated result
         try:
             out = None
-            for y0, band in decode_rows(data):
+            for y0, band in decode_rows(data, device=device):
                 if out is None:
                     out = np.empty(
                         (meta.ysize, meta.xsize) + band.shape[2:],
@@ -1163,7 +1222,7 @@ def decode(data: bytes) -> np.ndarray:
                 return out
         except Exception:  # noqa: BLE001  (fall back to whole-frame)
             pass
-    out = _decode_unoriented(data)
+    out = _decode_unoriented(data, device)
     if meta.m.orientation != 1:
         from libjxl_torch.extras.exif import apply_orientation
         out = np.ascontiguousarray(
@@ -1171,7 +1230,7 @@ def decode(data: bytes) -> np.ndarray:
     return out
 
 
-def _decode_unoriented(data: bytes) -> np.ndarray:
+def _decode_unoriented(data: bytes, device=None) -> np.ndarray:
     from libjxl_torch.api.container import extract_codestream
     meta, frames = parse_codestream(extract_codestream(data))
     if frames and getattr(frames[0].header, "nonserialized_is_preview",
@@ -1204,10 +1263,22 @@ def _decode_unoriented(data: bytes) -> np.ndarray:
         from libjxl_torch.color.xyb import (
             linear_to_srgb, xyb_to_linear, ycbcr_to_rgb,
         )
-        xyb = decode_vardct_frame(meta, frame)
+        xyb = decode_vardct_frame(meta, frame, device=device)
         ec_planes = getattr(xyb, "_ec_planes", None)
         xyb = xyb[:, :meta.ysize, :meta.xsize]
         ce = meta.m.color_encoding
+        if not isinstance(xyb, np.ndarray):
+            # device-resident result: color conversion + quantization
+            # on the device, fetch only the integer image
+            if (fh.color_transform == ColorTransform.XYB and
+                    not meta.m.bit_depth.floating_point_sample and
+                    bits <= 16 and not ec_planes and _is_srgb_like(ce)):
+                from libjxl_torch.render.filters_torch import \
+                    output_srgb_int_device
+                intensity = meta.m.tone_mapping.intensity_target
+                return output_srgb_int_device(
+                    xyb, intensity, (1 << bits) - 1)
+            xyb = xyb.cpu().numpy()
         if fh.color_transform == ColorTransform.YCBCR:
             srgb = np.stack(ycbcr_to_rgb(xyb[0], xyb[1], xyb[2]))
         else:

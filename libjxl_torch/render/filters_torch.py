@@ -7,7 +7,9 @@ launch per pass (their plain versions on a CPU tensor). Scalars are
 rounded to float32 on the host exactly as the reference's traced float32
 scalars are, so the kernels get the same weights. ``output_int`` is the
 inverse XYB + sRGB + quantization step that the reference fuses into the
-same XLA program; it is plain torch.
+same XLA program; it is plain torch. ``restore_device``,
+``output_srgb_int_device`` and ``restore_banded`` are ``decode()``'s
+entry points into them (``libjxl_tpu/render/filters_jax.py``).
 """
 
 from __future__ import annotations
@@ -55,6 +57,21 @@ def lf_params(lf, device=None) -> LfParams:
         f(lf.epf_border_sad_mul),
         f(lf.epf_pass0_sigma_scale), f(lf.epf_pass2_sigma_scale),
     )
+
+
+# the LoopFilter fields the filters read
+_LF_FIELDS = ("gab_x_weight1", "gab_x_weight2", "gab_y_weight1",
+              "gab_y_weight2", "gab_b_weight1", "gab_b_weight2",
+              "epf_quant_mul", "epf_sharp_lut", "epf_channel_scale",
+              "epf_border_sad_mul", "epf_pass0_sigma_scale",
+              "epf_pass2_sigma_scale")
+
+
+def lf_key(lf) -> tuple:
+    """The float32 constants of ``lf`` that the filters read, as a
+    hashable tuple: frames with equal keys are filtered alike."""
+    return tuple(float(v) for name in _LF_FIELDS
+                 for v in np.ravel(np.asarray(getattr(lf, name), _f32)))
 
 
 def compute_sigma(lfp: LfParams, raw_quant: torch.Tensor,
@@ -158,3 +175,56 @@ def output_int(xyb: torch.Tensor, intensity: float, maxval: int
         return out.to(torch.uint8)
     out = out.to(torch.int32)
     return torch.where(out >= 32768, out - 65536, out).to(torch.int16)
+
+
+def restore_device(xyb, lf, raw_quant, epf_sharpness, quant_scale: float,
+                   fetch: bool = True, device=None):
+    """Gaborish + EPF of one (3, H, W) frame on ``device`` in float32
+    (filters_jax.restore_device), with the frame's own loop filter
+    ``lf`` and its per-block raw quant and EPF sharpness. With ``fetch``
+    the result comes back as numpy of ``xyb``'s dtype; with
+    ``fetch=False`` it stays on the device for ``output_srgb_int_device``
+    (only the integer image then crosses to the host)."""
+    dev = resolve_device(device)
+    x = torch.from_numpy(np.ascontiguousarray(xyb, _f32)).to(dev)
+    out = restore(x, torch.from_numpy(np.asarray(raw_quant)).to(dev),
+                  torch.from_numpy(np.asarray(epf_sharpness)).to(dev),
+                  float(quant_scale), lf_params(lf, dev), bool(lf.gab),
+                  int(lf.epf_iters))
+    if not fetch:
+        return out
+    return out.cpu().numpy().astype(np.asarray(xyb).dtype)
+
+
+def output_srgb_int_device(xyb_dev: torch.Tensor, intensity: float,
+                           maxval: int) -> np.ndarray:
+    """The (h, w, 3) integer sRGB image (uint8, or uint16 for ``maxval >
+    255``) of a device-held XYB frame from ``restore_device(fetch=False)``:
+    the colour transform and quantization run on its device, and only
+    the integer image is fetched."""
+    out = output_int(xyb_dev, float(intensity), int(maxval)).cpu().numpy()
+    return out.view(np.uint16) if maxval > 255 else out
+
+
+def restore_banded(xyb: np.ndarray, lf, raw_quant, epf_sharpness,
+                   quant_scale: float, gd: int = 256, margin: int = 8,
+                   device=None) -> np.ndarray:
+    """Whole-frame filters applied in the group-row windows of the banded
+    decoder (``decode_rows``' filter_band: 256-row bands with 8-row
+    halos from their neighbours; filters_jax.restore_banded). Each
+    window is filtered as ``decode_rows`` filters it, so banded and
+    whole-frame decode stay bit-identical."""
+    h = xyb.shape[1]
+    parts = []
+    for y0 in range(0, h, gd):
+        rows = min(gd, h - y0)
+        top = margin if y0 > 0 else 0
+        bot = margin if y0 + rows < h else 0
+        ext = xyb[:, y0 - top:y0 + rows + bot]
+        br0 = (y0 - top) // 8
+        br1 = br0 + -(-ext.shape[1] // 8)
+        f = restore_device(ext, lf, np.asarray(raw_quant)[br0:br1],
+                           np.asarray(epf_sharpness)[br0:br1],
+                           quant_scale, device=device)
+        parts.append(f[:, top:top + rows])
+    return np.concatenate(parts, axis=1)

@@ -8,9 +8,10 @@ the list from the frame header and runs it. This is the same seam: a
 ``build_render_pipeline`` assembles the frame's stages in the
 dec_cache.cc:142-217 order (restoration filters -> patches -> splines
 -> upsampling -> noise), and callers can inspect, wrap, or extend the
-list.
+list (the device path swaps the two filter stages for one device
+restore stage, which runs the hand kernels on ``ctx["device"]``).
 
-ctx: dict with dec (frame decoder state), fh, meta, fd, lf.
+ctx: dict with dec (frame decoder state), fh, meta, fd, lf, device.
 """
 
 from __future__ import annotations
@@ -61,6 +62,41 @@ class EpfStage(Stage):
         if lf.epf_iters >= 2:
             img = epf_step2(img, inv_sigma, lf)
         return img
+
+
+class DeviceRestoreStage(Stage):
+    """Gaborish + EPF on the device in float32 (render/filters_torch.py,
+    the hand kernels on a CUDA device); replaces GaborishStage+EpfStage
+    on the device path. ``keep`` leaves the result on the device for a
+    downstream fused output stage."""
+
+    name = "device-restore"
+
+    def __init__(self, keep: bool = False):
+        self.keep = keep
+
+    def process(self, img, ctx):
+        from libjxl_torch.render.filters_torch import restore_device
+        dec, lf = ctx["dec"], ctx["lf"]
+        return restore_device(img, lf, dec.raw_quant, dec.epf_sharpness,
+                              dec.quantizer.scale, fetch=not self.keep,
+                              device=ctx["device"])
+
+
+class BandedDeviceRestoreStage(Stage):
+    """Gaborish + EPF on the device in decode_rows' band windows
+    (filters_torch.restore_banded): the fetch-to-host counterpart of
+    DeviceRestoreStage that keeps whole-frame output bit-identical to
+    the low-memory path."""
+
+    name = "device-restore-banded"
+
+    def process(self, img, ctx):
+        from libjxl_torch.render.filters_torch import restore_banded
+        dec, lf = ctx["dec"], ctx["lf"]
+        return restore_banded(np.asarray(img), lf, dec.raw_quant,
+                              dec.epf_sharpness, dec.quantizer.scale,
+                              device=ctx["device"])
 
 
 class PatchesStage(Stage):
@@ -121,14 +157,23 @@ class NoiseStage(Stage):
                          base_correlation_b=dec.cmap.base_correlation_b)
 
 
-def build_render_pipeline(fh, meta, dec) -> list:
+def build_render_pipeline(fh, meta, dec, device: bool = False,
+                          device_keep: bool = False) -> list:
     """Assemble the frame's stage list in dec_cache.cc order."""
     lf = fh.loop_filter
     stages: list = []
-    if lf.gab:
-        stages.append(GaborishStage())
-    if lf.epf_iters > 0:
-        stages.append(EpfStage())
+    if device and (lf.gab or lf.epf_iters > 0):
+        if device_keep:
+            stages.append(DeviceRestoreStage(keep=True))
+        else:
+            # fetchy path: filter in the decode_rows band windows so
+            # whole-frame and low-memory decode stay bit-identical
+            stages.append(BandedDeviceRestoreStage())
+    else:
+        if lf.gab:
+            stages.append(GaborishStage())
+        if lf.epf_iters > 0:
+            stages.append(EpfStage())
     if fh.flags & FrameFlags.PATCHES:
         stages.append(PatchesStage())
     if fh.flags & FrameFlags.SPLINES:

@@ -4,7 +4,10 @@ The plain float32 versions of the Gaborish and EPF kernels
 (``libjxl_torch/models/filter_kernels.py``, reached through
 ``render/filters_torch.py`` on CPU tensors) against the ``xp=jax.numpy``
 math of ``libjxl_tpu/render/filters.py`` and against the Pallas kernels
-run in interpret mode. Tolerance: 1e-5 absolute, the tolerance of
+run in interpret mode, at the default loop-filter constants and at
+non-default ones (Gaborish weights, EPF sharpness LUT, channel scales,
+sigma scales, border multiplier), as a stream may signal them.
+Tolerance: 1e-5 absolute, the tolerance of
 ``tests/test_butteraugli.py`` for the Pallas filters (float32 summation
 order differs; XYB values are below 1 in magnitude).
 """
@@ -45,6 +48,32 @@ def _lf(gab=True, epf_iters=3):
     lf = LoopFilter()
     lf.gab = gab
     lf.epf_iters = epf_iters
+    return lf
+
+
+# non-default loop-filter constants, one group at a time and all at once
+# (each exact in float16, as a stream carries them)
+VARIANTS = dict(
+    gab_weights=dict(gab_custom=True, gab_x_weight1=0.125,
+                     gab_x_weight2=0.0625, gab_y_weight1=0.09375,
+                     gab_y_weight2=0.03125, gab_b_weight1=0.25,
+                     gab_b_weight2=0.0),
+    sharp_lut=dict(epf_sharp_custom=True, epf_sharp_lut=(
+        0.0, 0.25, 0.375, 0.5, 0.75, 1.0, 1.5, 2.0)),
+    channel_scale=dict(epf_weight_custom=True,
+                       epf_channel_scale=(24.0, 8.0, 2.0)),
+    sigma_scales=dict(epf_sigma_custom=True, epf_quant_mul=0.75,
+                      epf_pass0_sigma_scale=0.5, epf_pass2_sigma_scale=4.0),
+    border_sad_mul=dict(epf_sigma_custom=True, epf_border_sad_mul=0.5),
+)
+VARIANTS["all"] = {k: v for d in list(VARIANTS.values()) for k, v in
+                   d.items()}
+
+
+def _lf_custom(variant, gab=True, epf_iters=3):
+    lf = _lf(gab, epf_iters)
+    for k, v in VARIANTS[variant].items():
+        setattr(lf, k, v)
     return lf
 
 
@@ -163,3 +192,72 @@ def test_wrappers_check_their_inputs():
     # a CPU tensor runs the plain version and launches nothing
     K.epf_filter(x, sig, 1, (1, 1, 1), 1.0, 1.0)
     assert (K.gaborish_filter.launches, K.epf_filter.launches) == before
+
+
+@pytest.mark.parametrize("variant", ["gab_weights", "all"])
+@pytest.mark.parametrize("shape", [(2, 9), (37, 61)])
+def test_gaborish_plain_matches_jax_custom_constants(variant, shape):
+    xyb, _, _ = _inputs(21, *shape)
+    lf = _lf_custom(variant)
+    got = FT.gaborish(_t(xyb), FT.lf_params(lf, "cpu")).numpy()
+    want = np.asarray(F.gaborish(jnp.asarray(xyb), FJ.lf_params(lf),
+                                 xp=jnp))
+    assert np.abs(got - want).max() <= TOL
+    default = FT.gaborish(_t(xyb), FT.lf_params(_lf(), "cpu")).numpy()
+    assert np.abs(got - default).max() > 100 * TOL
+
+
+@pytest.mark.parametrize("variant", ["sharp_lut", "channel_scale",
+                                     "sigma_scales", "border_sad_mul",
+                                     "all"])
+@pytest.mark.parametrize("pass_id", [0, 1, 2])
+def test_epf_plain_matches_jax_custom_constants(pass_id, variant):
+    xyb, rq, sh = _inputs(22 + pass_id, 37, 61)
+    sh[:2] = 7          # the LUT's last entry too
+    lf = _lf_custom(variant)
+    lfp, lfj = FT.lf_params(lf, "cpu"), FJ.lf_params(lf)
+    inv = FT.compute_sigma(lfp, _t(rq), _t(sh), 0.005)
+    inv_j = F.compute_sigma(lfj, None, None, jnp.asarray(rq),
+                            jnp.asarray(sh), jnp.float32(0.005), xp=jnp)
+    np.testing.assert_allclose(inv.numpy(), np.asarray(inv_j), rtol=1e-6)
+    step = (FT.epf_step0, FT.epf_step1, FT.epf_step2)[pass_id]
+    step_j = (F.epf_step0, F.epf_step1, F.epf_step2)[pass_id]
+    got = step(_t(xyb), inv, lfp).numpy()
+    want = np.asarray(step_j(jnp.asarray(xyb), inv_j, lfj, xp=jnp))
+    assert np.abs(got - want).max() <= TOL
+
+
+@pytest.mark.parametrize("variant", sorted(VARIANTS))
+def test_restore_matches_jax_program_custom_constants(variant):
+    xyb, rq, sh = _inputs(23, 45, 70)
+    lf = _lf_custom(variant)
+    got = FT.restore(_t(xyb), _t(rq), _t(sh), 0.004,
+                     FT.lf_params(lf, "cpu"), True, 3).numpy()
+    want = np.asarray(FJ._restore(jnp.asarray(xyb), jnp.asarray(rq),
+                                  jnp.asarray(sh), jnp.float32(0.004),
+                                  FJ.lf_params(lf), True, 3))
+    assert np.abs(got - want).max() <= TOL
+    default = FT.restore(_t(xyb), _t(rq), _t(sh), 0.004,
+                         FT.lf_params(_lf(), "cpu"), True, 3).numpy()
+    assert np.abs(got - default).max() > 100 * TOL
+
+
+@pytest.mark.parametrize("gab,epf_iters", [(True, 3), (False, 2)])
+def test_restore_matches_pallas_interpret_custom_constants(gab, epf_iters):
+    import libjxl_tpu.models.pallas_filters as PF
+
+    xyb, rq, sh = _inputs(24, 72, 136)
+    lf = _lf_custom("all", gab, epf_iters)
+    got = FT.restore(_t(xyb), _t(rq), _t(sh), 0.005,
+                     FT.lf_params(lf, "cpu"), gab, epf_iters).numpy()
+    inv_sig = F.compute_sigma(lf, None, None, rq, sh, 0.005)
+    sig_pix = F._upsample8(np.asarray(inv_sig, np.float32), 72, 136)
+    orig = PF.pl.pallas_call
+    PF.pl.pallas_call = functools.partial(orig, interpret=True)
+    try:
+        want = np.asarray(PF.restore_pallas(
+            jnp.asarray(xyb), jnp.asarray(sig_pix),
+            PF.static_lf_params(lf), gab, epf_iters))
+    finally:
+        PF.pl.pallas_call = orig
+    assert np.abs(got - want).max() <= TOL

@@ -40,19 +40,25 @@ vardct/frame_dec vardct/quant_tables_data vardct/transforms_small
 # copied without their jax branches: (top-level names whose text
 # differs, top-level names dropped); every other name is the original's
 EDITED = {
+    # decode() and decode_rows() take the device of their filters, and
+    # a device-resident frame is fetched with torch
     "api/decoder": ({"decode_vardct_frame", "decode_rows",
                      "_device_decode_inputs", "_decode_unoriented",
-                     "decode_many"}, {"_try"}),
+                     "decode_many", "decode", "_frame_to_float"},
+                    {"_try"}),
     "api/encoder": ({"encode_lossless", "encode_lossless_device",
                      "encode_lossless_many", "encode_lossless_device_prefix",
                      "_prefix_pass1", "_prefix_pass2", "_prefix_upload",
                      "_prefix_fused", "_prefix_assemble",
                      "_assemble_lossless_device"}, set()),
     "render/filters": (set(), set()),
-    "render/pipeline": ({"build_render_pipeline"},
-                        {"DeviceRestoreStage", "BandedDeviceRestoreStage"}),
+    # the device restore stages run on ctx["device"], without the
+    # sharded-filter branch
+    "render/pipeline": ({"DeviceRestoreStage", "BandedDeviceRestoreStage"},
+                        set()),
     "utils/native": ({"_build", "get_lib"}, set()),
-    "config": ({"RuntimeConfig"}, {"device_filters_enabled"}),
+    # the port's device-filter policy does not look at a JAX backend
+    "config": ({"RuntimeConfig", "device_filters_enabled"}, set()),
     # workers hide the CUDA card instead of pinning jax to the CPU, the
     # native library is built before the spawn, a pool of another size
     # is made anew, a pool failure raises, and the caller always names
