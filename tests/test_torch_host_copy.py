@@ -28,13 +28,15 @@ color/cms color/icc color/icc_profile color/xyb
 core/fields core/frame_header core/geometry core/headers core/toc
 entropy/alias entropy/ans entropy/histogram entropy/hybrid
 entropy/permutation entropy/prefix extras/exif
-modular/codec modular/enc_ma modular/frame modular/image modular/predict
-modular/transforms modular/tree parallel/runner
-render/blending render/enc_patches render/noise render/patches
+modular/codec modular/enc_ma modular/fixed_trees modular/frame
+modular/image modular/predict modular/transforms modular/tree
+parallel/runner render/blending render/enc_dots render/enc_downsample
+render/enc_noise render/enc_patches render/noise render/patches
 render/splines render/upsample render/upsample_weights utils/bits
-vardct/ac_context vardct/ac_strategy vardct/afv_basis vardct/cfl
-vardct/coeff_order vardct/dct vardct/enc_transforms_small
-vardct/frame_dec vardct/quant_tables_data vardct/transforms_small
+utils/debug utils/prof vardct/ac_context vardct/ac_strategy
+vardct/adaptive_quant vardct/afv_basis vardct/cfl vardct/coeff_order
+vardct/dct vardct/enc_acs vardct/enc_transforms_small vardct/frame_dec
+vardct/quant_tables_data vardct/transforms_small
 """.split()
 
 # copied without their jax branches: (top-level names whose text
@@ -66,6 +68,17 @@ EDITED = {
     "parallel/host_pool": ({"_worker_init", "_decode_inputs_task",
                             "get_pool", "_warm_task", "warm",
                             "map_decode_inputs"}, {"default_workers"}),
+    # the e<=4 device branch calls the port's device program on
+    # ``device``; effort >= 7 and the effort >= 5 device front end raise
+    # NotImplementedError (ROADMAP A5), so the iterated encode and the
+    # EPF sharpness search are left out; encode_lossy_many runs the
+    # port's batch program
+    "vardct/frame_enc": ({"LossyOptions", "encode_lossy",
+                          "encode_lossy_many"},
+                         {"_encode_lossy_iterated",
+                          "_encode_lossy_iterated_legacy",
+                          "_epf_sharpness_search",
+                          "_epf_sharpness_search_state"}),
     # DequantMatrices.decode records whether the stream signalled the
     # default AC tables (the reference never clears encodings_default)
     "vardct/quant_weights": ({"DequantMatrices"}, set()),
@@ -73,7 +86,8 @@ EDITED = {
 
 # the port's own modules that mirror a reference module's name
 PORTED = {"__init__", "models/lossless", "models/pack_kernel",
-          "models/vardct_decode", "ops/modular_ops"}
+          "models/vardct_decode", "models/vardct_pipeline",
+          "ops/modular_ops"}
 
 
 def _read(root, mod):

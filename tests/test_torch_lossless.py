@@ -255,6 +255,17 @@ host = decode(lossy)
 assert dev.shape == host.shape == (301, 517, 3)
 assert np.abs(dev.astype(int) - host.astype(int)).max() <= 4
 assert decode_many.device_frames == 1
+from libjxl_torch.config import config
+from libjxl_torch.vardct.frame_enc import (
+    LossyOptions, encode_lossy, encode_lossy_many,
+)
+photo = imgs[0]
+lossy = encode_lossy_many([photo, photo], LossyOptions(
+    effort=3, use_device=True), workers=2, device="cpu")
+assert lossy[0] == lossy[1] == encode_lossy(photo, LossyOptions(effort=3))
+config.device_filters = True
+back = decode(lossy[0], device="cpu")
+assert np.abs(back.astype(int) - photo.astype(int)).mean() < 4
 assert not [m for m, mod in sys.modules.items()
             if mod is not None and m.split(".")[0] in ("jax", "libjxl_tpu")]
 print("ok")
@@ -263,7 +274,8 @@ print("ok")
 
 def test_port_runs_with_jax_blocked():
     """The card machine has no JAX, and the port imports nothing of the
-    JAX package: it encodes and decodes with both blocked."""
+    JAX package: it encodes (lossless and lossy, host and device) and
+    decodes (host and device filters) with both blocked."""
     for root, _, files in os.walk(os.path.join(REPO, "libjxl_torch")):
         for f in files:
             if f.endswith(".py"):
