@@ -19,7 +19,19 @@ Drives the port's two main paths through their entry points:
   decode_many's pool of one process a core. Every output is held
   within +-1 per 8-bit sample (+-4 per 16-bit sample) of the port's
   host ``decode``, and the pool's staging arrays must equal those
-  staged in this process bit for bit.
+  staged in this process bit for bit;
+* the single-image decode ``libjxl_torch.api.decoder.decode`` on the 4K
+  DCT8 and variable-block fixtures, its restoration filters on the card:
+  with ``config.device_filters = True`` (the frame stays on the card for
+  the colour output) and in auto mode (4 MP and more: the band windows
+  of ``decode_rows``), each held within +-1 of the float64 host filters,
+  auto bit for bit equal to ``decode_rows`` on the card;
+* the VarDCT lossy encode ``libjxl_torch.vardct.frame_enc.
+  encode_lossy_many(imgs, LossyOptions(distance=1.0, effort=3,
+  use_device=True))`` on the 8 4K photos, plus ``encode_lossy`` of a
+  ragged 1001x1503 image: one 4K stream and the ragged one against the
+  host encoder, and every stream decoded by ``decode_many`` on the card,
+  within +-1 of the host decode and above a PSNR floor.
 
 Phases: environment, build (nvcc for sm_90a, one process per kernel
 source, all at once, + the native host library), the pack kernel and
@@ -29,8 +41,12 @@ batch rate), its host decode check, the two decode batches (each with
 launch counts, the chunks handed to the device, the batch rate, the
 host-stage and the device-only time; the var batch also with one
 ``torch.profiler`` run), their host decode check, the host stage alone
-on the pool and on threads, and a check that neither JAX nor the JAX
-package was imported. The last two lines are the kernels' JSON record
+on the pool and on threads, ``decode()`` on the card (launch counts per
+header and band window, times next to the host filters'), the lossy
+encode (its streams against the host encoder's, the batch rate, the
+device program's time, a ``torch.profiler`` run, the round trip through
+``decode_many``), and a check that neither JAX nor the JAX package was
+imported. The last two lines are the kernels' JSON record
 and ``{"ok": true, "device": ...}``. Any failure raises and exits
 non-zero before those lines. The script reaches the codec only through
 ``libjxl_torch`` (and ``bench.make_image`` for its photos).
@@ -73,6 +89,17 @@ DEVICE = "cuda:0"
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
 FP32_FLOPS = 67e12            # H100 SXM float32 outside the tensor cores
 FILTER_TOL = 1e-5
+# decode() on the card: the 4K DCT8 and variable-block fixtures
+DECODE_API = ((FIXTURES, "photo4k_d1_a.jxl"), (VAR_FIXTURES,
+                                                 "photo4k_e5_d1.jxl"))
+BAND_ROWS = 256                 # decode_rows' band height
+# the lossy encode: bench.make_image seeds of the 8 4K photos (those of
+# the lossless encode) and of the ragged image; the PSNR floor (8-bit
+# RGB, all samples) is set below the lowest that
+# tests/data/torch_vardct/lossy_psnr.py measures for these streams when
+# it encodes them on the CPU
+RAGGED_SEED = 23
+PSNR_FLOOR = 40.5
 
 
 def card_line() -> str:
@@ -289,7 +316,7 @@ def decode_batches() -> dict:
     return batches
 
 
-def _profile(run, card: str) -> None:
+def _profile(run, card: str, label: str) -> None:
     """One run under torch.profiler: the device's busy ms (the union of
     its kernels' and copies' time spans), its idle share of the run's
     wall time and the device ops that took the most time."""
@@ -306,7 +333,7 @@ def _profile(run, card: str) -> None:
     spans = sorted((e.time_range.start, e.time_range.end, e.name)
                    for e in prof.events() if e.device_type == DeviceType.CUDA)
     if not spans:
-        print("profiled warm var batch: the profiler gave no device events; "
+        print(f"profiled {label}: the profiler gave no device events; "
               "busy time and idle share not measured", flush=True)
         return
     busy_us, end = 0.0, float("-inf")
@@ -320,7 +347,7 @@ def _profile(run, card: str) -> None:
     top = sorted(((us / 1e3, n, name) for name, (n, us) in by_name.items()),
                  reverse=True)[:10]
     busy_ms = busy_us / 1e3
-    print(f"profiled warm var batch: wall {wall_ms} ms, device busy "
+    print(f"profiled {label}: wall {wall_ms} ms, device busy "
           f"{busy_ms} ms ({len(spans)} device events), idle share "
           f"{1 - busy_ms / wall_ms}; top device ops (ms, count, name): "
           f"{top}, on {card}", flush=True)
@@ -335,9 +362,6 @@ def phase_decode_batch(dev, card: str, label: str, batch) -> tuple:
     import torch
 
     from libjxl_torch.api.decoder import _device_decode_inputs, decode_many
-    from libjxl_torch.models.filter_kernels import (
-        epf_filter, gaborish_filter,
-    )
     from libjxl_torch.models import vardct_decode
 
     names, streams, manifest = batch
@@ -355,9 +379,7 @@ def phase_decode_batch(dev, card: str, label: str, batch) -> tuple:
     vardct_decode.decode_frames_device, \
         vardct_decode.decode_frames_device_var = map(recording, originals)
     decode_many.device_frames = 0
-    gaborish_filter.launches = 0
-    epf_filter.launches = 0
-    epf_filter.pass_launches = [0, 0, 0]
+    _reset_filter_counts()
     try:
         t0 = time.perf_counter()
         outs = decode_many(streams, device=dev)
@@ -366,9 +388,7 @@ def phase_decode_batch(dev, card: str, label: str, batch) -> tuple:
         vardct_decode.decode_frames_device, \
             vardct_decode.decode_frames_device_var = originals
     counts = dict(device_frames=decode_many.device_frames,
-                  gaborish=gaborish_filter.launches,
-                  epf=epf_filter.launches,
-                  epf_passes=list(epf_filter.pass_launches))
+                  **_filter_counts())
     print(f"{label} decode: {len(streams)} streams in {t_cold} s (cold), "
           f"counts {counts}", flush=True)
     if counts["device_frames"] != len(streams):
@@ -412,7 +432,8 @@ def phase_decode_batch(dev, card: str, label: str, batch) -> tuple:
           f"stage on the pool included): {rates} MP/s (median "
           f"{statistics.median(rates)}), on {card}", flush=True)
     if label == "var":
-        _profile(lambda: decode_many(streams, device=dev), card)
+        _profile(lambda: decode_many(streams, device=dev), card,
+                 "warm var batch")
 
     # device only: the frames' host stage done, the reconstruction from
     # the numpy inputs (their upload included) to the integer image
@@ -529,6 +550,222 @@ def phase_host_stage(card: str, batches: dict, workers: int) -> None:
                                      "arrays than this process")
         print(f"{label}: the pool's staging equals this process's, bit "
               "for bit", flush=True)
+
+
+def _filter_counts() -> dict:
+    from libjxl_torch.models.filter_kernels import (
+        epf_filter, gaborish_filter,
+    )
+    return dict(gaborish=gaborish_filter.launches,
+                epf_passes=list(epf_filter.pass_launches))
+
+
+def _reset_filter_counts() -> None:
+    from libjxl_torch.models.filter_kernels import (
+        epf_filter, gaborish_filter,
+    )
+    gaborish_filter.launches = 0
+    epf_filter.launches = 0
+    epf_filter.pass_launches = [0, 0, 0]
+
+
+def phase_decode_api(dev, card: str) -> dict:
+    """``decode()`` of a 4K DCT8 and a 4K variable-block fixture with its
+    restoration filters on the card: with ``device_filters = True`` (one
+    whole-frame launch of each filter the header asks for, the colour
+    output on the card) and in auto mode (4 MP and more: one launch a
+    256-row band window), each run twice with the counts set to 0 before
+    and read after; each output within +-1 of the float64 host filters,
+    auto bit for bit equal to ``decode_rows`` on the card. Returns the
+    filter launches of the first run of each mode."""
+    from libjxl_torch.api.decoder import decode, decode_rows
+    from libjxl_torch.config import config
+
+    total = dict(gaborish=0, epf_passes=[0, 0, 0])
+    try:
+        for directory, name in DECODE_API:
+            manifest, streams = load_fixtures(directory)
+            m, data = manifest[name], streams[name]
+            per_frame = [m["gab"]] + [int(m["epf_iters"] >= k)
+                                      for k in (3, 1, 2)]
+            config.device_filters = False
+            t0 = time.perf_counter()
+            host = decode(data)
+            host_ms = (time.perf_counter() - t0) * 1e3
+            outs, times = {}, {}
+            for mode, setting, windows in (
+                    ("resident", True, 1),
+                    ("auto", None, -(-m["h"] // BAND_ROWS))):
+                config.device_filters = setting
+                times[mode] = []
+                for rep in range(2):
+                    _reset_filter_counts()
+                    t0 = time.perf_counter()
+                    out = decode(data, device=dev)
+                    times[mode].append((time.perf_counter() - t0) * 1e3)
+                    c = _filter_counts()
+                    got = [c["gaborish"]] + c["epf_passes"]
+                    if got != [windows * n for n in per_frame]:
+                        raise AssertionError(
+                            f"decode() {mode} of {name}: launches {got}, "
+                            f"want {windows} x {per_frame}")
+                    if rep == 0:
+                        total["gaborish"] += got[0]
+                        total["epf_passes"] = [
+                            a + b for a, b in zip(total["epf_passes"],
+                                                  got[1:])]
+                        print(f"decode() {mode} of {name}: Gaborish and "
+                              f"EPF0/1/2 launches {got} ({windows} "
+                              f"window(s) x {per_frame})", flush=True)
+                diff = np.abs(out.astype(np.int64) - host.astype(np.int64))
+                if out.shape != host.shape or diff.max() > 1:
+                    raise AssertionError(
+                        f"decode() {mode} of {name} differs from the host "
+                        f"filters by {diff.max()}")
+                outs[mode] = out
+                print(f"decode() {mode} of {name}: within +-1 of the host "
+                      f"filters (max diff {diff.max()}, share of samples "
+                      f"that differ {float((diff > 0).mean())})", flush=True)
+            rows = np.concatenate([b for _, b in decode_rows(data,
+                                                             device=dev)])
+            if not np.array_equal(rows, outs["auto"]):
+                raise AssertionError(f"decode() auto of {name} is not "
+                                     "decode_rows on the card bit for bit")
+            print(f"decode() auto of {name} equals decode_rows on the card "
+                  "bit for bit", flush=True)
+            print(f"decode() of {name} ({m['h']}x{m['w']}), ms a decode: "
+                  f"host float64 filters {host_ms}; device filters "
+                  f"resident {times['resident']}, auto (band windows) "
+                  f"{times['auto']} (first run of each cold), on {card}",
+                  flush=True)
+    finally:
+        config.device_filters = None
+    return total
+
+
+def psnr(a: np.ndarray, b: np.ndarray) -> float:
+    mse = np.mean((a.astype(np.float64) - b.astype(np.float64)) ** 2)
+    return float(10 * np.log10(255.0 ** 2 / mse))
+
+
+def _quantized(img, opts, dev) -> list:
+    """The quantized AC (DC slot zeroed), DC and CfL maps that
+    ``encode_lossy`` codes for ``img`` with ``opts``."""
+    import copy
+
+    from libjxl_torch.vardct.frame_enc import encode_lossy
+    o = copy.copy(opts)
+    o._aux, o._recon_only = {}, True
+    encode_lossy(img, o, device=dev)
+    st = o._aux["recon_state"]
+    q_ac = np.array(st["q_ac"], np.int64)
+    q_ac[..., 0] = 0
+    return [q_ac] + [np.asarray(st[k], np.int64)
+                     for k in ("q_dc", "ytox", "ytob")]
+
+
+def phase_lossy_encode(dev, card: str, photos: list, workers: int) -> None:
+    """The VarDCT lossy encode on the card: ``encode_lossy_many`` of the 8
+    4K photos at distance 1, effort 3, and ``encode_lossy`` of a ragged
+    image; one 4K stream and the ragged one against the host encoder
+    (equal, or else no quantized value off by more than 1 and the sizes
+    within 1%); the batch rate, the device program's time a 4K image and
+    a profiled batch; every stream through ``decode_many`` on the card,
+    within +-1 of the float64 host decode and above the PSNR floor."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    import torch
+    from bench import make_image
+
+    from libjxl_torch.api.decoder import decode, decode_many
+    from libjxl_torch.models import vardct_pipeline as VP
+    from libjxl_torch.vardct.frame_enc import (
+        LossyOptions, _falcon_device_scalars, encode_lossy,
+        encode_lossy_many,
+    )
+
+    opts = LossyOptions(distance=1.0, effort=3, use_device=True)
+    ragged = make_image(RAGGED_SEED, 1001, 1503)
+    imgs = photos + [ragged]
+    t0 = time.perf_counter()
+    streams = encode_lossy_many(photos, opts, device=dev)
+    t_cold = time.perf_counter() - t0
+    streams.append(encode_lossy(ragged, opts, device=dev))
+    print(f"lossy encode: 8 4K photos in {t_cold} s (cold), "
+          f"{sum(len(s) for s in streams[:8]) * 8 / (8 * 3840 * 2160)} "
+          f"bpp, ragged {len(streams[8])} bytes", flush=True)
+    mp = sum(im.shape[0] * im.shape[1] for im in photos) / 1e6
+    rates = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        again = encode_lossy_many(photos, opts, device=dev)
+        rates.append(mp / (time.perf_counter() - t0))
+    if again != streams[:8]:
+        raise AssertionError("a repeated lossy encode gave other streams")
+    print(f"lossy encode batch, 8 x 3840x2160 at d1 e3 (host halves on 3 "
+          f"threads included): {rates} MP/s (median "
+          f"{statistics.median(rates)}), on {card}", flush=True)
+    _profile(lambda: encode_lossy_many(photos, opts, device=dev), card,
+             "warm lossy encode batch")
+    # the device program alone on uploaded pixels (CUDA events)
+    sc = _falcon_device_scalars(photos[0].shape, opts)
+    args = [torch.from_numpy(np.asarray(a, np.float32)).to(dev)
+            for a in sc[:6]]
+    for b in (1, 4):
+        px = torch.from_numpy(np.stack(photos[:b])).to(dev)
+        ms = _time_ms(lambda: VP._frame_body(px, *args, *sc[6:]), 3)
+        print(f"lossy encode device program (_frame_body), {b} x 4K: {ms} "
+              f"ms, {ms / b} ms a 4K image, on {card}", flush=True)
+        del px
+    torch.cuda.empty_cache()
+
+    host_opts = LossyOptions(distance=1.0, effort=3)
+    for name, img, got in (("photo0", photos[0], streams[0]),
+                           ("ragged", ragged, streams[8])):
+        want = encode_lossy(img, host_opts)
+        if got == want:
+            print(f"lossy encode {name}: the device stream equals the host "
+                  f"encoder's ({len(got)} bytes)", flush=True)
+            continue
+        diffs = [np.abs(a - b) for a, b in zip(_quantized(img, opts, dev),
+                                               _quantized(img, host_opts,
+                                                          None))]
+        ratio = len(got) / len(want)
+        print(f"lossy encode {name}: the device stream differs from the host "
+              f"encoder's: quantized values that differ (AC, DC, ytox, "
+              f"ytob) {[int((d > 0).sum()) for d in diffs]}, by at most "
+              f"{[int(d.max()) for d in diffs]}; size ratio {ratio}",
+              flush=True)
+        if max(int(d.max()) for d in diffs) > 1 or abs(ratio - 1) > 0.01:
+            raise AssertionError(f"lossy encode {name}: device and host "
+                                 "streams drift too far apart")
+
+    decode_many.device_frames = 0
+    outs = decode_many(streams, workers=workers, device=dev)
+    if decode_many.device_frames != len(streams):
+        raise AssertionError(f"decode_many reconstructed "
+                             f"{decode_many.device_frames} of "
+                             f"{len(streams)} lossy streams on the card")
+    with ProcessPoolExecutor(
+            max_workers=min(len(streams), os.cpu_count() or 1),
+            mp_context=multiprocessing.get_context("spawn"),
+            initializer=_host_filters) as ex:
+        host = list(ex.map(decode, streams))
+    worst, values = [], []
+    for got, want, img in zip(outs, host, imgs):
+        diff = np.abs(got.astype(np.int64) - want.astype(np.int64))
+        worst.append(int(diff.max()))
+        values.append(psnr(got, img))
+    print(f"lossy round trip through decode_many on the card: max diff "
+          f"from the host decode {worst}; PSNR (dB) {values}, floor "
+          f"{PSNR_FLOOR}", flush=True)
+    if max(worst) > 1:
+        raise AssertionError("a lossy stream's card decode differs from "
+                             "its host decode by more than 1")
+    if min(values) < PSNR_FLOOR:
+        raise AssertionError(f"a lossy round trip is below the PSNR floor "
+                             f"{PSNR_FLOOR}: {values}")
 
 
 def _leaves(frame):
@@ -702,25 +939,31 @@ def main() -> None:
     phase_host_check(batches, outputs)
     del outputs
     phase_host_stage(card, batches, workers)
+
+    # 6. decode() with its filters on the card
+    counts["decode()"] = phase_decode_api(dev, card)
+
+    # 7. the lossy encode, and its round trip through decode_many
+    phase_lossy_encode(dev, card, photos, workers)
     host_pool.shutdown()
 
-    # 6. decode every lossless stream on the host
+    # 8. decode every lossless stream on the host
     jobs = ([(n, s, im) for n, s, im in zip(names, streams, batch)]
             + [("rgba16 two-pass", two_pass, extras["rgba16"]),
                ("gray ans", ans, extras["gray"])])
     phase_decode(jobs)
 
-    # 7. neither jax nor the JAX package was imported
+    # 9. neither jax nor the JAX package was imported
     loaded = [m for m in sys.modules
               if m.split(".")[0] in ("jax", "libjxl_tpu")]
     if loaded:
         raise AssertionError(f"imported: {loaded}")
     print("jax, libjxl_tpu: not imported", flush=True)
 
-    # 8. results
+    # 10. results
     print(card_line(), flush=True)
     rec["bound_share"] = rec["bound_ms"] / rec["ms"]
-    # the filter launches of both decode batches
+    # the filter launches of both decode batches and of decode()
     both = dict(gaborish=sum(c["gaborish"] for c in counts.values()),
                 epf_passes=[sum(c["epf_passes"][p] for c in counts.values())
                             for p in range(3)])

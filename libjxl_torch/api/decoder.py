@@ -9,10 +9,11 @@ The port's copy of ``libjxl_tpu/api/decoder.py``. ``decode`` is the host
 decoder; its restoration filters run on the device in float32 (the hand
 kernels) where ``config.device_filters_enabled`` says so (auto: frames
 of 4 MP and more), else in float64 numpy. ``decode_many`` reconstructs
-4:4:4 VarDCT frames on the device (``models/vardct_decode.py``). ``decode_exact`` checks many lossless
-streams against their images in spawned worker processes, because the
-host decoder reads prefix-coded modular streams symbol by symbol in
-Python (several microseconds a symbol).
+4:4:4 VarDCT frames on the device (``models/vardct_decode.py``).
+``decode_exact`` checks many lossless streams against their images in
+spawned worker processes, because the host decoder reads prefix-coded
+modular streams symbol by symbol in Python (several microseconds a
+symbol).
 """
 
 from __future__ import annotations
@@ -341,11 +342,10 @@ def decode_vardct_frame(meta: CodecMetadata, frame,
         # the pre-filter reconstruction + decoder state lets the caller
         # re-run gaborish/EPF with candidate sharpness fields locally
         return xyb, dec, lf
-    from libjxl_torch.config import config as _cfg
+    from libjxl_torch.config import config as _cfg, device_filters_enabled
     from libjxl_torch.render.pipeline import (
         build_render_pipeline, run_render_pipeline,
     )
-    from libjxl_torch.config import device_filters_enabled
     on_device = device_filters_enabled(fd.ysize * fd.xsize) and \
         (lf.gab or lf.epf_iters > 0)
     # keep the result ON DEVICE when nothing downstream needs host

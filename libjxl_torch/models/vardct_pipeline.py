@@ -178,8 +178,11 @@ def _upload(a, dev, dtype=None) -> torch.Tensor:
 
 
 def _frames(pixels_u8_b, qac, inv_qac, table, thres_y, thres_xb, mul_dc,
-            h, w, yb, xb, x_qm_mul, device) -> list:
-    """_frame_body on ``device`` and the payload of each image."""
+            h, w, yb, xb, x_qm_mul, device) -> tuple:
+    """_frame_body on ``device``. Returns (idx, vals, counts, q_dc, ytox,
+    ytob): the nonzero quantized AC values of the batch, image after
+    image, with their flat indices within their image, and how many
+    each image has."""
     dev = resolve_device(device)
     q_ac, q_dc, ytox, ytob = _frame_body(
         _upload(pixels_u8_b, dev), _upload(qac, dev, _f32),
@@ -192,8 +195,7 @@ def _frames(pixels_u8_b, qac, inv_qac, table, thres_y, thres_xb, mul_dc,
     vals = flat[img, idx].to(torch.int16)
     idx = idx.to(torch.int32 if flat.shape[1] < 2 ** 31 else torch.int64)
     counts = torch.bincount(img, minlength=n).tolist()
-    return [LossyPayload(i, v, q_dc[k], ytox[k], ytob[k]) for k, (i, v)
-            in enumerate(zip(idx.split(counts), vals.split(counts)))]
+    return idx, vals, counts, q_dc, ytox, ytob
 
 
 def encode_lossy_frame_device(pixels_u8, qac, inv_qac, table, thres_y,
@@ -203,9 +205,10 @@ def encode_lossy_frame_device(pixels_u8, qac, inv_qac, table, thres_y,
     """The e<=4 VarDCT encode math of one image on ``device`` (see
     ``_frame_body``). pixels_u8: (h, w, 3) uint8 sRGB; the other inputs
     are numpy. Returns the image's payload, still on the device."""
-    return _frames(np.asarray(pixels_u8)[None], qac, inv_qac, table,
-                   thres_y, thres_xb, mul_dc, h, w, yb, xb, x_qm_mul,
-                   device)[0]
+    idx, vals, _, q_dc, ytox, ytob = _frames(
+        np.asarray(pixels_u8)[None], qac, inv_qac, table, thres_y,
+        thres_xb, mul_dc, h, w, yb, xb, x_qm_mul, device)
+    return LossyPayload(idx, vals, q_dc[0], ytox[0], ytob[0])
 
 
 def encode_lossy_frame_device_batch(pixels_u8_b, qac, inv_qac, table,
@@ -216,14 +219,13 @@ def encode_lossy_frame_device_batch(pixels_u8_b, qac, inv_qac, table,
     that share one quant field (the e<=4 field is constant): one
     program over the batch, and one fetch of each payload array for the
     whole batch. Returns one numpy payload per image."""
-    out = _frames(pixels_u8_b, qac, inv_qac, table, thres_y, thres_xb,
-                  mul_dc, h, w, yb, xb, x_qm_mul, device)
-    cuts = np.cumsum([len(p.idx) for p in out])[:-1]
-    fields = [np.split(torch.cat(list(f)).cpu().numpy(), cuts)
-              for f in zip(*out)][:2]
-    fields += [torch.stack(list(f)).cpu().numpy() for f in
-               list(zip(*out))[2:]]
-    return [LossyPayload(*f) for f in zip(*fields)]
+    idx, vals, counts, *maps = _frames(
+        pixels_u8_b, qac, inv_qac, table, thres_y, thres_xb, mul_dc, h, w,
+        yb, xb, x_qm_mul, device)
+    cuts = np.cumsum(counts)[:-1]
+    idx, vals = (np.split(t.cpu().numpy(), cuts) for t in (idx, vals))
+    q_dc, ytox, ytob = (t.cpu().numpy() for t in maps)
+    return [LossyPayload(*f) for f in zip(idx, vals, q_dc, ytox, ytob)]
 
 
 def _host(a) -> np.ndarray:

@@ -146,3 +146,94 @@ def test_decode_frames_device_var_card_matches_cpu(gab, epf_iters):
     for g, r in zip(got, want, strict=True):
         assert g.shape == r.shape == (256, 256, 3)
         assert np.abs(g.astype(int) - r.astype(int)).max() <= 1
+
+
+def _custom_lf(gab=True, epf_iters=3):
+    """A loop filter with non-default Gaborish weights, EPF sharpness
+    LUT, channel scales, sigma scales and border multiplier."""
+    from libjxl_torch.core.frame_header import LoopFilter
+    lf = LoopFilter()
+    lf.gab, lf.epf_iters = gab, epf_iters
+    lf.gab_x_weight1, lf.gab_x_weight2 = 0.125, 0.0625
+    lf.gab_y_weight1, lf.gab_y_weight2 = 0.09375, 0.03125
+    lf.gab_b_weight1, lf.gab_b_weight2 = 0.25, 0.0
+    lf.epf_sharp_lut = (0.0, 0.25, 0.375, 0.5, 0.75, 1.0, 1.5, 2.0)
+    lf.epf_channel_scale = (24.0, 8.0, 2.0)
+    lf.epf_quant_mul = 0.75
+    lf.epf_pass0_sigma_scale, lf.epf_pass2_sigma_scale = 0.5, 4.0
+    lf.epf_border_sad_mul = 0.5
+    return lf
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(37, 61), (270, 481)])
+@pytest.mark.parametrize("gab,epf_iters", [(True, 3), (False, 2)])
+def test_restore_custom_constants_on_card_matches_plain(shape, gab,
+                                                        epf_iters):
+    """The kernels with non-default loop-filter constants against their
+    plain versions, within 1e-5."""
+    from libjxl_torch.render.filters_torch import lf_params, restore
+    dev = _card()
+    rng = np.random.default_rng(shape[0])
+    h, w = shape
+    xyb = ((rng.random((3, h, w)) - 0.4) * 0.3).astype(np.float32)
+    rq = rng.integers(1, 40, (-(-h // 8), -(-w // 8))).astype(np.int32)
+    sh = rng.integers(0, 8, rq.shape).astype(np.int32)
+    lf = _custom_lf(gab, epf_iters)
+    out = {}
+    for d in (dev, torch.device("cpu")):
+        out[d.type] = restore(
+            torch.from_numpy(xyb).to(d), torch.from_numpy(rq).to(d),
+            torch.from_numpy(sh).to(d), 0.005, lf_params(lf, d), gab,
+            epf_iters).cpu()
+    assert float((out["cuda"] - out["cpu"]).abs().max()) <= 1e-5
+
+
+def _fixture(path):
+    with open(path, "rb") as f:
+        return f.read()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("path,tol", [
+    ("tests/data/torch_vardct_var/graphics_256x320_e7.jxl", 1),
+    ("tests/data/torch_vardct/rgb16_301x517.jxl", 4)])
+def test_decode_device_filters_on_card_match_host(path, tol, monkeypatch):
+    """decode() with its filters on the card (device_filters True: the
+    frame stays on the card for the colour output; auto above the
+    threshold: the band windows) against the float64 host filters; the
+    banded path equals decode_rows on the card bit for bit."""
+    import libjxl_torch.config as C
+    from libjxl_torch.api.decoder import decode, decode_rows
+    from libjxl_torch.models.filter_kernels import (
+        epf_filter, gaborish_filter,
+    )
+    dev = _card()
+    data = _fixture(path)
+    monkeypatch.setattr(C.config, "device_filters", False)
+    host = decode(data)
+    monkeypatch.setattr(C.config, "device_filters", True)
+    before = (gaborish_filter.launches, epf_filter.launches)
+    resident = decode(data, device=dev)
+    assert (gaborish_filter.launches, epf_filter.launches) > before
+    assert resident.dtype == host.dtype and resident.shape == host.shape
+    assert np.abs(resident.astype(int) - host.astype(int)).max() <= tol
+    monkeypatch.setattr(C.config, "device_filters", None)
+    monkeypatch.setattr(C, "device_filters_enabled", lambda n=None: True)
+    banded = decode(data, device=dev)
+    rows = np.concatenate([b for _, b in decode_rows(data, device=dev)])
+    np.testing.assert_array_equal(banded, rows)
+    assert np.abs(banded.astype(int) - host.astype(int)).max() <= tol
+
+
+@pytest.mark.gpu
+def test_device_encode_on_card_matches_host():
+    """The e3 device encode on the card gives the host encoder's bytes on
+    a 256x320 photo."""
+    from bench import make_image
+    from libjxl_torch.vardct.frame_enc import LossyOptions, encode_lossy
+    dev = _card()
+    img = make_image(7, 256, 320)
+    got = encode_lossy(img, LossyOptions(distance=1.0, effort=3,
+                                         use_device=True), device=dev)
+    assert got == encode_lossy(img, LossyOptions(distance=1.0, effort=3))

@@ -5,7 +5,7 @@
   groups with ragged edges;
 * the device path (``use_device=True``, ``device="cpu"``: the same torch
   program the card runs) gives the bytes of the JAX package's device
-  path at efforts 1-4, and on the noise image of
+  path at efforts 1-4, and, on a noise image of the shape of
   ``tests/test_vardct_encoder.py``'s device test (120x200, d=1.5, e3),
   where the JAX package's device and host streams agree, its host
   stream;
@@ -136,8 +136,7 @@ def test_device_payload_is_exact():
     assert q_dc.shape == (yb, xb, 3) and ytox.shape == ytob.shape == (
         -(-yb // 8), -(-xb // 8))
     batch = VP.encode_lossy_frame_device_batch(
-        np.stack([img, img]), *port._falcon_device_scalars(img.shape, opts)[
-            :6], *port._falcon_device_scalars(img.shape, opts)[6:],
+        np.stack([img, img]), *port._falcon_device_scalars(img.shape, opts),
         device="cpu")
     for p in batch:
         for a, b in zip(VP.unpack_lossy_outputs(p, yb, xb),
