@@ -26,12 +26,16 @@ Drives the port's two main paths through their entry points:
   the colour output) and in auto mode (4 MP and more: the band windows
   of ``decode_rows``), each held within +-1 of the float64 host filters,
   auto bit for bit equal to ``decode_rows`` on the card;
+* ``decode_many`` of two 4K streams its device program does not take
+  (progressive), whose filters go to the card in this process;
 * the VarDCT lossy encode ``libjxl_torch.vardct.frame_enc.
   encode_lossy_many(imgs, LossyOptions(distance=1.0, effort=3,
   use_device=True))`` on the 8 4K photos, plus ``encode_lossy`` of a
-  ragged 1001x1503 image: one 4K stream and the ragged one against the
-  host encoder, and every stream decoded by ``decode_many`` on the card,
-  within +-1 of the host decode and above a PSNR floor.
+  ragged 1001x1503 image: every stream equal to the same float32
+  program's stream on the CPU (its stages compared one by one) and
+  against the float64 host encoder, and every stream decoded
+  by ``decode_many`` on the card, within +-1 of the host decode and
+  above a PSNR floor.
 
 Phases: environment, build (nvcc for sm_90a, one process per kernel
 source, all at once, + the native host library), the pack kernel and
@@ -42,11 +46,13 @@ launch counts, the chunks handed to the device, the batch rate, the
 host-stage and the device-only time; the var batch also with one
 ``torch.profiler`` run), their host decode check, the host stage alone
 on the pool and on threads, ``decode()`` on the card (launch counts per
-header and band window, times next to the host filters'), the lossy
-encode (its streams against the host encoder's, the batch rate, the
-device program's time, a ``torch.profiler`` run, the round trip through
-``decode_many``), and a check that neither JAX nor the JAX package was
-imported. The last two lines are the kernels' JSON record
+header and band window, times next to the host filters'), the
+host-routed ``decode_many`` (launches, time on threads against one
+``decode`` after another), the lossy encode (the batch rate, the device
+program's time, the host half's time, a ``torch.profiler`` run, its
+streams against the CPU's and the host encoder's, the round trip
+through ``decode_many``), and a check that neither JAX nor the JAX
+package was imported. The last two lines are the kernels' JSON record
 and ``{"ok": true, "device": ...}``. Any failure raises and exits
 non-zero before those lines. The script reaches the codec only through
 ``libjxl_torch`` (and ``bench.make_image`` for its photos).
@@ -472,14 +478,6 @@ def phase_decode_batch(dev, card: str, label: str, batch) -> tuple:
     return counts, outs
 
 
-def _host_filters() -> None:
-    """Worker initializer: ``decode`` filters on the host in float64 at
-    every frame size, and the card stays hidden."""
-    os.environ["CUDA_VISIBLE_DEVICES"] = ""
-    from libjxl_torch.config import config
-    config.device_filters = False
-
-
 def phase_host_check(batches: dict, outputs: dict) -> None:
     """Every decode output within +-1 per 8-bit sample (+-4 per 16-bit
     sample) of the host decode of its stream (float64 filters), which
@@ -488,6 +486,7 @@ def phase_host_check(batches: dict, outputs: dict) -> None:
     from concurrent.futures import ProcessPoolExecutor
 
     from libjxl_torch.api.decoder import decode
+    from libjxl_torch.parallel import host_pool
 
     distinct = {}
     for names, streams, _ in batches.values():
@@ -497,7 +496,7 @@ def phase_host_check(batches: dict, outputs: dict) -> None:
     with ProcessPoolExecutor(
             max_workers=min(len(order), os.cpu_count() or 1),
             mp_context=multiprocessing.get_context("spawn"),
-            initializer=_host_filters) as ex:
+            initializer=host_pool._worker_init) as ex:
         host = dict(zip(order, ex.map(decode, [distinct[n] for n in order])))
     for label, (names, _, manifest) in batches.items():
         worst = {}
@@ -643,14 +642,52 @@ def phase_decode_api(dev, card: str) -> dict:
     return total
 
 
+def phase_host_routed(dev, card: str, photos: list, workers: int) -> None:
+    """``decode_many`` of two 4K streams that its device program does not
+    take (progressive: two passes) and whose filters the auto policy puts
+    on the card: they decode in this process, one thread each, through
+    the filter kernels. Their launches, their time against ``decode`` of
+    one after the other, and each output equal to ``decode``'s."""
+    from libjxl_torch.api.decoder import decode, decode_many
+    from libjxl_torch.vardct.frame_enc import LossyOptions, encode_lossy_many
+
+    streams = encode_lossy_many(photos[:2], LossyOptions(
+        distance=1.0, effort=3, progressive=True, gaborish=1))
+    t0 = time.perf_counter()
+    alone = [decode(s, device=dev) for s in streams]
+    serial_ms = (time.perf_counter() - t0) * 1e3
+    decode_many.device_frames = 0
+    _reset_filter_counts()
+    t0 = time.perf_counter()
+    outs = decode_many(streams, workers=workers, device=dev)
+    many_ms = (time.perf_counter() - t0) * 1e3
+    c = _filter_counts()
+    got = [c["gaborish"]] + c["epf_passes"]
+    if decode_many.device_frames or got[0] == 0:
+        raise AssertionError(f"host-routed decode_many: device program "
+                             f"frames {decode_many.device_frames}, filter "
+                             f"launches {got}")
+    for a, b in zip(outs, alone):
+        if not np.array_equal(a, b):
+            raise AssertionError("host-routed decode_many differs from "
+                                 "decode() on the card")
+    print(f"decode_many of 2 host-routed 4K streams (progressive, filters "
+          f"on the card in auto mode): {many_ms} ms on 2 threads, decode() "
+          f"one after the other {serial_ms} ms; Gaborish and EPF0/1/2 "
+          f"launches {got}; outputs equal to decode()'s, on {card}",
+          flush=True)
+
+
 def psnr(a: np.ndarray, b: np.ndarray) -> float:
     mse = np.mean((a.astype(np.float64) - b.astype(np.float64)) ** 2)
     return float(10 * np.log10(255.0 ** 2 / mse))
 
 
-def _quantized(img, opts, dev) -> list:
+def _quantized(img, opts, dev) -> tuple:
     """The quantized AC (DC slot zeroed), DC and CfL maps that
-    ``encode_lossy`` codes for ``img`` with ``opts``."""
+    ``encode_lossy`` codes for ``img`` with ``opts``; the host encoder's
+    float64 DCT coefficients (None on the device path) and the DC
+    steps."""
     import copy
 
     from libjxl_torch.vardct.frame_enc import encode_lossy
@@ -660,18 +697,131 @@ def _quantized(img, opts, dev) -> list:
     st = o._aux["recon_state"]
     q_ac = np.array(st["q_ac"], np.int64)
     q_ac[..., 0] = 0
-    return [q_ac] + [np.asarray(st[k], np.int64)
-                     for k in ("q_dc", "ytox", "ytob")]
+    return ([q_ac] + [np.asarray(st[k], np.int64)
+                      for k in ("q_dc", "ytox", "ytob")],
+            o._aux.get("stored_dct"),
+            st["quantizer"].mul_dc(st["matrices"].dc_quant))
+
+
+def _dc_before_rounding(stored, mul_dc) -> np.ndarray:
+    """(yb, xb, 3) DC values over their steps before rounding, in the
+    encoder's order (B less the dequantized Y), in the dtype of
+    ``stored`` (yb, xb, 3, 64) and ``mul_dc``."""
+    dcx, dcy, dcb = (stored[:, :, c, 0] for c in range(3))
+    q_y = np.round(dcy / mul_dc[1])
+    return np.stack([dcx / mul_dc[0], dcy / mul_dc[1],
+                     (dcb - q_y * mul_dc[1]) / mul_dc[2]], -1)
+
+
+def encode_drift(dev, name: str, img, opts, got: bytes) -> None:
+    """Where the card's device encode of ``img`` departs from the same
+    float32 program on the CPU and from the float64 host encoder.
+
+    Card against CPU, stage by stage: the XYB image, the DCT of one XYB
+    input, then every output of the program. The card's stream must
+    equal the device path's stream on the CPU (the program the tests
+    hold to the JAX package's device path byte for byte). The host
+    encoder computes in float64, so a value whose float64 lies within a
+    float32 rounding of a .5 boundary rounds the other way there (in the
+    JAX package too): against it this prints how many quantized values
+    differ, the DC values before rounding on both sides where a DC
+    differs, and the size ratio, and fails if a value is off by more
+    than 1 or the sizes by more than 1%."""
+    import torch
+
+    from libjxl_torch.models import vardct_pipeline as VP
+    from libjxl_torch.vardct.frame_enc import (
+        LossyOptions, _falcon_device_scalars, encode_lossy,
+    )
+
+    h, w = img.shape[:2]
+    sc = _falcon_device_scalars(img.shape, opts)
+    yb, xb = sc[8], sc[9]
+    px = torch.from_numpy(np.ascontiguousarray(img[None]))
+    xyb = {d: VP.srgb_to_xyb_device(px.to(d).permute(0, 3, 1, 2)).cpu()
+           for d in (dev, "cpu")}
+    dct = {d: VP.dct_stored(xyb["cpu"].to(d), h, w, yb, xb).cpu()
+           for d in (dev, "cpu")}
+    outs = {}
+    for d in (dev, "cpu"):
+        args = [torch.from_numpy(np.asarray(a, np.float32)).to(d)
+                for a in sc[:6]]
+        outs[d] = [t.cpu() for t in VP._frame_body(px.to(d), *args,
+                                                   *sc[6:])]
+    n_dct = int((dct[dev] != dct["cpu"]).sum())
+    print(f"lossy encode {name}, card against CPU, the same float32 "
+          f"program: XYB samples that differ "
+          f"{int((xyb[dev] != xyb['cpu']).sum())} of {xyb[dev].numel()}; "
+          f"DCT coefficients of one XYB input that differ {n_dct} of "
+          f"{dct[dev].numel()} (max abs diff "
+          f"{float((dct[dev] - dct['cpu']).abs().max())}); values that "
+          f"differ (AC, DC, ytox, ytob) "
+          f"{[int((a != b).sum()) for a, b in zip(outs[dev], outs['cpu'])]}",
+          flush=True)
+    on_cpu = encode_lossy(img, opts, device="cpu")
+    print(f"lossy encode {name}: the card's stream "
+          f"{'equals' if got == on_cpu else 'differs from'} the device "
+          f"path's stream on the CPU ({len(got)} and {len(on_cpu)} bytes)",
+          flush=True)
+    if got != on_cpu:
+        raise AssertionError(f"lossy encode {name}: the card's stream "
+                             "differs from the same program's on the CPU")
+
+    host_opts = LossyOptions(distance=opts.distance, effort=opts.effort)
+    want = encode_lossy(img, host_opts)
+    if got == want:
+        print(f"lossy encode {name}: the device stream equals the host "
+              f"encoder's ({len(got)} bytes)", flush=True)
+        return
+    q_dev = _quantized(img, opts, dev)[0]
+    q_host, stored64, mul64 = _quantized(img, host_opts, None)
+    diffs = [np.abs(a - b) for a, b in zip(q_dev, q_host)]
+    ratio = len(got) / len(want)
+    print(f"lossy encode {name}: the device stream differs from the host "
+          f"encoder's: quantized values that differ (AC, DC, ytox, ytob) "
+          f"{[int((d > 0).sum()) for d in diffs]}, by at most "
+          f"{[int(d.max()) for d in diffs]}; size ratio {ratio}",
+          flush=True)
+    # the card's float32 DC before rounding (from the CPU's XYB, equal to
+    # the card's where no XYB sample differs), and the host's float64
+    dc32 = _dc_before_rounding(dct[dev][0].numpy(),
+                               np.asarray(sc[5], np.float32))
+    dc64 = _dc_before_rounding(stored64, np.asarray(mul64, np.float64))
+    # each DC that differs either has its float64 value next to a .5
+    # boundary or is a B value whose block's Y differs (B is coded less
+    # the dequantized Y)
+    where = list(zip(*np.nonzero(diffs[1])))
+    near = [abs(float(dc64[i]) - float(np.floor(dc64[i]) + 0.5))
+            for i in where]
+    follows = [c == 2 and diffs[1][by, bx, 1] > 0 for by, bx, c in where]
+    boundary = [d for d, f in zip(near, follows) if not f]
+    print(f"  {len(where)} DC values differ: {len(boundary)} whose float64 "
+          f"value lies within {max(boundary, default=0.0)!r} of a .5 "
+          f"boundary, {sum(follows)} B values whose block's Y differs",
+          flush=True)
+    for (by, bx, c), _ in zip(where, range(3)):
+        print(f"  DC ({by}, {bx}) channel {'XYB'[c]}: device "
+              f"{int(q_dev[1][by, bx, c])} from float32 "
+              f"{float(dc32[by, bx, c])!r}, host "
+              f"{int(q_host[1][by, bx, c])} from float64 "
+              f"{float(dc64[by, bx, c])!r}", flush=True)
+    if max(boundary, default=0.0) > 1e-3:
+        raise AssertionError(f"lossy encode {name}: a DC value differs from "
+                             "the host's away from a rounding boundary")
+    if max(int(d.max()) for d in diffs) > 1 or abs(ratio - 1) > 0.01:
+        raise AssertionError(f"lossy encode {name}: device and host "
+                             "streams drift too far apart")
 
 
 def phase_lossy_encode(dev, card: str, photos: list, workers: int) -> None:
     """The VarDCT lossy encode on the card: ``encode_lossy_many`` of the 8
     4K photos at distance 1, effort 3, and ``encode_lossy`` of a ragged
-    image; one 4K stream and the ragged one against the host encoder
-    (equal, or else no quantized value off by more than 1 and the sizes
-    within 1%); the batch rate, the device program's time a 4K image and
-    a profiled batch; every stream through ``decode_many`` on the card,
-    within +-1 of the float64 host decode and above the PSNR floor."""
+    image; the batch rate, the device program's time a 4K image, the
+    host half's time and a profiled batch; every stream through
+    ``encode_drift``; every stream through ``decode_many`` on
+    the card, within +-1 of the float64 host decode and above the PSNR
+    floor."""
+    import copy
     import multiprocessing
     from concurrent.futures import ProcessPoolExecutor
 
@@ -680,6 +830,7 @@ def phase_lossy_encode(dev, card: str, photos: list, workers: int) -> None:
 
     from libjxl_torch.api.decoder import decode, decode_many
     from libjxl_torch.models import vardct_pipeline as VP
+    from libjxl_torch.parallel import host_pool
     from libjxl_torch.vardct.frame_enc import (
         LossyOptions, _falcon_device_scalars, encode_lossy,
         encode_lossy_many,
@@ -719,27 +870,26 @@ def phase_lossy_encode(dev, card: str, photos: list, workers: int) -> None:
               f"ms, {ms / b} ms a 4K image, on {card}", flush=True)
         del px
     torch.cuda.empty_cache()
+    # the host half alone (the payload's unpacking, context modelling,
+    # tokens, the entropy tail, the DC and AC-metadata streams) of each
+    # of 4 4K images on one thread, from payloads the card computed
+    payloads = VP.encode_lossy_frame_device_batch(
+        np.stack(photos[:4]), *sc[:6], h=sc[6], w=sc[7], yb=sc[8],
+        xb=sc[9], x_qm_mul=sc[10], device=dev)
+    secs = []
+    for im, p in zip(photos, payloads):
+        o = copy.copy(opts)
+        o._predispatched = p
+        t0 = time.perf_counter()
+        encode_lossy(im, o, device=dev)
+        secs.append(time.perf_counter() - t0)
+    print(f"lossy encode host half alone, one 4K image on one thread: "
+          f"{secs} s ({[len(p.idx) for p in payloads]} nonzero quantized "
+          f"AC values of {sc[8] * sc[9] * 3 * 63} a payload), on {card}",
+          flush=True)
 
-    host_opts = LossyOptions(distance=1.0, effort=3)
-    for name, img, got in (("photo0", photos[0], streams[0]),
-                           ("ragged", ragged, streams[8])):
-        want = encode_lossy(img, host_opts)
-        if got == want:
-            print(f"lossy encode {name}: the device stream equals the host "
-                  f"encoder's ({len(got)} bytes)", flush=True)
-            continue
-        diffs = [np.abs(a - b) for a, b in zip(_quantized(img, opts, dev),
-                                               _quantized(img, host_opts,
-                                                          None))]
-        ratio = len(got) / len(want)
-        print(f"lossy encode {name}: the device stream differs from the host "
-              f"encoder's: quantized values that differ (AC, DC, ytox, "
-              f"ytob) {[int((d > 0).sum()) for d in diffs]}, by at most "
-              f"{[int(d.max()) for d in diffs]}; size ratio {ratio}",
-              flush=True)
-        if max(int(d.max()) for d in diffs) > 1 or abs(ratio - 1) > 0.01:
-            raise AssertionError(f"lossy encode {name}: device and host "
-                                 "streams drift too far apart")
+    for i, (img, got) in enumerate(zip(imgs, streams)):
+        encode_drift(dev, f"photo{i}" if i < 8 else "ragged", img, opts, got)
 
     decode_many.device_frames = 0
     outs = decode_many(streams, workers=workers, device=dev)
@@ -750,7 +900,7 @@ def phase_lossy_encode(dev, card: str, photos: list, workers: int) -> None:
     with ProcessPoolExecutor(
             max_workers=min(len(streams), os.cpu_count() or 1),
             mp_context=multiprocessing.get_context("spawn"),
-            initializer=_host_filters) as ex:
+            initializer=host_pool._worker_init) as ex:
         host = list(ex.map(decode, streams))
     worst, values = [], []
     for got, want, img in zip(outs, host, imgs):
@@ -942,6 +1092,7 @@ def main() -> None:
 
     # 6. decode() with its filters on the card
     counts["decode()"] = phase_decode_api(dev, card)
+    phase_host_routed(dev, card, photos, workers)
 
     # 7. the lossy encode, and its round trip through decode_many
     phase_lossy_encode(dev, card, photos, workers)

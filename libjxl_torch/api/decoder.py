@@ -194,6 +194,16 @@ def _group_pool():
     return default_runner()
 
 
+def _filters_on_device(fh, fd) -> bool:
+    """The device-filter policy for one VarDCT frame: the frame has a
+    restoration filter to run and ``config.device_filters_enabled`` holds
+    for its size."""
+    from libjxl_torch.config import device_filters_enabled
+    lf = fh.loop_filter
+    return bool(lf.gab or lf.epf_iters > 0) and \
+        device_filters_enabled(fd.ysize * fd.xsize)
+
+
 def decode_vardct_frame(meta: CodecMetadata, frame,
                         reference_frames=None,
                         dc_image=None, _return_prefilter=False,
@@ -342,12 +352,11 @@ def decode_vardct_frame(meta: CodecMetadata, frame,
         # the pre-filter reconstruction + decoder state lets the caller
         # re-run gaborish/EPF with candidate sharpness fields locally
         return xyb, dec, lf
-    from libjxl_torch.config import config as _cfg, device_filters_enabled
+    from libjxl_torch.config import config as _cfg
     from libjxl_torch.render.pipeline import (
         build_render_pipeline, run_render_pipeline,
     )
-    on_device = device_filters_enabled(fd.ysize * fd.xsize) and \
-        (lf.gab or lf.epf_iters > 0)
+    on_device = _filters_on_device(fh, fd)
     # keep the result ON DEVICE when nothing downstream needs host
     # pixels: decode() then runs the color conversion + quantization
     # on the device and fetches only the integer image
@@ -604,8 +613,7 @@ def decode_rows(data: bytes, gy_range: tuple | None = None,
             # block-row slice of the per-block fields covering ext
             br0 = (gy * gd - top) // 8
             br1 = br0 + -(-ext.shape[1] // 8)
-            from libjxl_torch.config import device_filters_enabled
-            if device_filters_enabled(fd.ysize * fd.xsize):
+            if _filters_on_device(fh, fd):
                 # the same float32 device filters as the whole-frame
                 # path, so banded output stays bit-identical to decode()
                 from libjxl_torch.render.filters_torch import \
@@ -1111,7 +1119,8 @@ def decode_many(streams, workers: int | None = None, device=None,
 
     Each chunk shares its frames' loop-filter constants. A stream that
     decodes on the host and whose filters the device-filter policy puts
-    on the device decodes in this process, on ``device``.
+    on the device decodes in this process, on ``device``, on a thread
+    pool; the pool's workers filter the others on the host.
 
     With ``fetch=False`` a device frame is returned as its (h, w, 3)
     device tensor (see ``decode_frames_device``)."""
@@ -1160,29 +1169,34 @@ def decode_many(streams, workers: int | None = None, device=None,
             for j, i in enumerate(chunk):
                 results[i] = out[j]
     rest = [i for i, p in enumerate(prepped) if p is None]
-    # a stream whose filters the policy puts on the card decodes here, on
-    # ``device``; the others on the pool, whose workers hide the card
-    here = [i for i in rest if _filters_on_device(streams[i])]
+    # a stream with a frame whose filters the policy puts on the card
+    # decodes in this process, on ``device``, on threads (as the
+    # reference decodes all of these); the others on the pool, whose
+    # workers hide the card and filter on the host
+    here = [i for i in rest if _stream_filters_on_device(streams[i])]
     pooled = [i for i in rest if i not in here]
-    if pooled:
-        host = host_pool.get_pool(workers).map(decode,
-                                               [streams[i] for i in pooled])
-        for i, o in zip(pooled, host):
-            results[i] = o
-    for i in here:
-        results[i] = decode(streams[i], device=device)
+    host = host_pool.get_pool(workers).map(
+        decode, [streams[i] for i in pooled]) if pooled else ()
+    if here:
+        from concurrent.futures import ThreadPoolExecutor
+        with ThreadPoolExecutor(min(len(here), workers)) as ex:
+            for i, o in zip(here, ex.map(
+                    lambda i: decode(streams[i], device=device), here)):
+                results[i] = o
+    for i, o in zip(pooled, host):
+        results[i] = o
     return results
 
 
-def _filters_on_device(data: bytes) -> bool:
-    """Does the device-filter policy hold for a VarDCT frame of this
-    stream (the policy ``decode_vardct_frame`` applies)."""
+def _stream_filters_on_device(data: bytes) -> bool:
+    """Does ``decode`` filter a frame of this stream on the device (the
+    policy of ``decode_vardct_frame``, on every VarDCT frame but a
+    preview)."""
     from libjxl_torch.api.container import extract_codestream
-    from libjxl_torch.config import device_filters_enabled
     _, frames = parse_codestream(extract_codestream(data))
     return any(f.header.encoding == FrameEncoding.VARDCT and
-               device_filters_enabled(f.dims.ysize * f.dims.xsize)
-               for f in frames)
+               not getattr(f.header, "nonserialized_is_preview", False) and
+               _filters_on_device(f.header, f.dims) for f in frames)
 
 
 decode_many.device_frames = 0

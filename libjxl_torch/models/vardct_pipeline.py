@@ -12,7 +12,9 @@ Pallas kernel):
 The host receives the nonzero quantized AC values with their flat
 indices, at their exact count, plus the quantized DC and the CfL maps,
 and runs context modeling and entropy coding (``vardct/frame_enc.py``).
-Float math is float32 with TF32 off. Two steps are computed so that
+Float math is float32 with TF32 off, and every division is a true
+division on the card too (PyTorch's CUDA division by a Python number
+multiplies by its reciprocal instead). Two steps are computed so that
 they do not depend on a library's float32 pow: the sRGB transfer curve
 is a 256-entry table (the base in float32, the power in float64, rounded
 once), and the cube root is a Newton step in float64 from ``pow(x,
@@ -69,11 +71,14 @@ def cbrt(x: torch.Tensor) -> torch.Tensor:
 def _srgb_table(dev) -> torch.Tensor:
     """sRGB -> linear for the 256 uint8 values: the float32 curve
     ``((v + 0.055) / 1.055) ** 2.4`` with its power correctly rounded
-    (exponent float32(2.4), evaluated in float64)."""
-    srgb = torch.arange(256, dtype=_f32, device=dev) / 255.0
+    (exponent float32(2.4), evaluated in float64). Built on the CPU and
+    moved to ``dev``: a CUDA tensor divided by a Python number is
+    multiplied by the number's float32 reciprocal, which is not the
+    correctly rounded quotient."""
+    srgb = torch.arange(256, dtype=_f32) / 255.0
     curve = ((srgb + 0.055) / 1.055).double().pow(
         float(np.float32(2.4))).to(_f32)
-    return torch.where(srgb <= 0.04045, srgb / 12.92, curve)
+    return torch.where(srgb <= 0.04045, srgb / 12.92, curve).to(dev)
 
 
 def srgb_to_xyb_device(rgb_u8: torch.Tensor) -> torch.Tensor:
@@ -98,6 +103,19 @@ def _adjust_quant_bias(q: torch.Tensor, c: int) -> torch.Tensor:
                        torch.sign(q) * _K_BIASES[c], out)
 
 
+def dct_stored(xyb: torch.Tensor, h: int, w: int, yb: int, xb: int
+               ) -> torch.Tensor:
+    """(B, 3, h, w) XYB -> (B, yb, xb, 3, 64) 8x8 DCT coefficients in the
+    stored (transposed) layout: the image padded to whole blocks by
+    repeating its last row and column, two float32 GEMMs a block."""
+    n = xyb.shape[0]
+    xyb = F.pad(xyb, (0, xb * 8 - w, 0, yb * 8 - h), mode="replicate")
+    blocks = xyb.reshape(n, 3, yb, 8, xb, 8).permute(0, 2, 4, 1, 3, 5)
+    m8 = torch.tensor(dct_matrix(8), dtype=_f32, device=xyb.device)
+    coef = torch.matmul(torch.matmul(m8, blocks), m8.T)
+    return coef.transpose(-1, -2).reshape(n, yb, xb, 3, 64)
+
+
 def _frame_body(px: torch.Tensor, qac, inv_qac, table, thres_y, thres_xb,
                 mul_dc, h: int, w: int, yb: int, xb: int, x_qm_mul: float):
     """The e<=4 encode math of a batch: sRGB -> XYB, the 8x8 DCT,
@@ -111,12 +129,8 @@ def _frame_body(px: torch.Tensor, qac, inv_qac, table, thres_y, thres_xb,
     (q_ac (B, yb, xb, 3, 64) int32 with the DC slot zero, q_dc (B, yb,
     xb, 3) int32, ytox, ytob (B, ty, tx) int32)."""
     n = px.shape[0]
-    xyb = srgb_to_xyb_device(px.permute(0, 3, 1, 2))
-    xyb = F.pad(xyb, (0, xb * 8 - w, 0, yb * 8 - h), mode="replicate")
-    blocks = xyb.reshape(n, 3, yb, 8, xb, 8).permute(0, 2, 4, 1, 3, 5)
-    m8 = torch.tensor(dct_matrix(8), dtype=_f32, device=px.device)
-    coef = torch.matmul(torch.matmul(m8, blocks), m8.T)
-    stored = coef.transpose(-1, -2).reshape(n, yb, xb, 3, 64)
+    stored = dct_stored(srgb_to_xyb_device(px.permute(0, 3, 1, 2)),
+                        h, w, yb, xb)
 
     inv_table = 1.0 / table
     qac3 = qac[:, :, None]
@@ -144,10 +158,13 @@ def _frame_body(px: torch.Tensor, qac, inv_qac, table, thres_y, thres_xb,
     dx = (xt * yt).sum(dims)
     db = (bt * yt).sum(dims)
     safe = denom.clamp_min(1e-9)
+    # a tensor divisor: a Python one would make CUDA multiply by its
+    # reciprocal (see _srgb_table)
+    scale = torch.tensor(_COLOR_SCALE, dtype=_f32, device=px.device)
     ytox = torch.where(denom < 1e-9, 0.0, torch.clamp(
-        torch.round(dx / safe / _COLOR_SCALE), -128, 127))
+        torch.round(dx / safe / scale), -128, 127))
     ytob = torch.where(denom < 1e-9, 0.0, torch.clamp(
-        torch.round((db / safe - 1.0) / _COLOR_SCALE), -128, 127))
+        torch.round((db / safe - 1.0) / scale), -128, 127))
 
     def per_block(t):                           # (B, ty, tx) -> (B, yb, xb)
         return t.repeat_interleave(8, 1).repeat_interleave(8, 2)[

@@ -12,8 +12,9 @@ stage on the pool and on threads.
 
 Workers hide the CUDA card (``CUDA_VISIBLE_DEVICES=""``) before anything
 there touches CUDA, so they never create a context on the parent's
-card; the native host library is built in the parent before the pool
-spawns, so the workers only load it. The pool persists across calls
+card, and filter on the host in float64 at every frame size; the
+native host library is built in the parent before the pool spawns, so
+the workers only load it. The pool persists across calls
 (spawn + imports cost seconds; a serving process pays them once).
 """
 
@@ -30,8 +31,11 @@ def _worker_init() -> None:
     # The parent owns the card; workers only ever run host-side
     # numpy/C. Importing torch does not initialise CUDA, and CUDA reads
     # this variable when it first initialises, so no worker can see the
-    # card.
+    # card. decode_many decodes every stream whose filters belong on the
+    # card in the parent, so workers filter on the host at every size.
     os.environ["CUDA_VISIBLE_DEVICES"] = ""
+    from libjxl_torch.config import config
+    config.device_filters = False
 
 
 def _decode_inputs_task(data: bytes):

@@ -59,18 +59,11 @@ def lf_params(lf, device=None) -> LfParams:
     )
 
 
-# the LoopFilter fields the filters read
-_LF_FIELDS = ("gab_x_weight1", "gab_x_weight2", "gab_y_weight1",
-              "gab_y_weight2", "gab_b_weight1", "gab_b_weight2",
-              "epf_quant_mul", "epf_sharp_lut", "epf_channel_scale",
-              "epf_border_sad_mul", "epf_pass0_sigma_scale",
-              "epf_pass2_sigma_scale")
-
-
 def lf_key(lf) -> tuple:
-    """The float32 constants of ``lf`` that the filters read, as a
-    hashable tuple: frames with equal keys are filtered alike."""
-    return tuple(float(v) for name in _LF_FIELDS
+    """The float32 constants of ``lf`` that the filters read (the fields
+    of ``LfParams``), as a hashable tuple: frames with equal keys are
+    filtered alike."""
+    return tuple(float(v) for name in LfParams._fields
                  for v in np.ravel(np.asarray(getattr(lf, name), _f32)))
 
 

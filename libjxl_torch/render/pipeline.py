@@ -67,19 +67,16 @@ class EpfStage(Stage):
 class DeviceRestoreStage(Stage):
     """Gaborish + EPF on the device in float32 (render/filters_torch.py,
     the hand kernels on a CUDA device); replaces GaborishStage+EpfStage
-    on the device path. ``keep`` leaves the result on the device for a
-    downstream fused output stage."""
+    on the device path and leaves the result on the device for
+    ``decode()``'s fused colour output."""
 
     name = "device-restore"
-
-    def __init__(self, keep: bool = False):
-        self.keep = keep
 
     def process(self, img, ctx):
         from libjxl_torch.render.filters_torch import restore_device
         dec, lf = ctx["dec"], ctx["lf"]
         return restore_device(img, lf, dec.raw_quant, dec.epf_sharpness,
-                              dec.quantizer.scale, fetch=not self.keep,
+                              dec.quantizer.scale, fetch=False,
                               device=ctx["device"])
 
 
@@ -164,7 +161,7 @@ def build_render_pipeline(fh, meta, dec, device: bool = False,
     stages: list = []
     if device and (lf.gab or lf.epf_iters > 0):
         if device_keep:
-            stages.append(DeviceRestoreStage(keep=True))
+            stages.append(DeviceRestoreStage())
         else:
             # fetchy path: filter in the decode_rows band windows so
             # whole-frame and low-memory decode stay bit-identical

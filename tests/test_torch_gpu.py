@@ -237,3 +237,54 @@ def test_device_encode_on_card_matches_host():
     got = encode_lossy(img, LossyOptions(distance=1.0, effort=3,
                                          use_device=True), device=dev)
     assert got == encode_lossy(img, LossyOptions(distance=1.0, effort=3))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("setting", [False, None])
+def test_decode_many_host_routed_4mp_on_card(setting, monkeypatch):
+    """A 4 MP progressive stream (host-routed) through decode_many on the
+    card: with device_filters False it comes back from the pool, whose
+    workers filter on the host; in auto mode it decodes in this process
+    with its filters on the card. Each equals decode() with the same
+    setting."""
+    import libjxl_torch.config as C
+    from libjxl_torch.api.decoder import decode, decode_many
+    from libjxl_torch.vardct.frame_enc import LossyOptions, encode_lossy
+    dev = _card()
+    h = w = 2048
+    rng = np.random.default_rng(7)
+    yy, xx = np.mgrid[0:h, 0:w]
+    img = np.stack([xx * 255 // w, yy * 255 // h,
+                    (xx + yy) * 255 // (h + w)], -1)
+    img = (img + rng.integers(0, 6, img.shape)).clip(0, 255).astype(np.uint8)
+    data = encode_lossy(img, LossyOptions(distance=1.0, effort=3,
+                                          progressive=True, gaborish=1))
+    monkeypatch.setattr(C.config, "device_filters", setting)
+    got = decode_many([data], workers=2, device=dev)[0]
+    np.testing.assert_array_equal(got, decode(data, device=dev))
+
+
+@pytest.mark.gpu
+def test_device_encode_program_on_card_equals_cpu():
+    """The e3 device program on the card gives the CPU's float32 values
+    bit for bit: the XYB image, the DCT and every output (quantized AC,
+    DC, CfL maps) of a 1001x1503 photo."""
+    from bench import make_image
+    from libjxl_torch.models import vardct_pipeline as VP
+    from libjxl_torch.vardct.frame_enc import (
+        LossyOptions, _falcon_device_scalars,
+    )
+    dev = _card()
+    img = make_image(23, 1001, 1503)
+    sc = _falcon_device_scalars(img.shape, LossyOptions(
+        distance=1.0, effort=3, use_device=True))
+    px = torch.from_numpy(img[None])
+    got = {}
+    for d in (dev, torch.device("cpu")):
+        xyb = VP.srgb_to_xyb_device(px.to(d).permute(0, 3, 1, 2))
+        args = [torch.from_numpy(np.asarray(a, np.float32)).to(d)
+                for a in sc[:6]]
+        got[d.type] = [xyb, VP.dct_stored(xyb, *sc[6:10])] + list(
+            VP._frame_body(px.to(d), *args, *sc[6:]))
+    for a, b in zip(got["cuda"], got["cpu"]):
+        assert torch.equal(a.cpu(), b)

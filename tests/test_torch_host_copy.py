@@ -55,9 +55,11 @@ EDITED = {
                      "_assemble_lossless_device"}, set()),
     "render/filters": (set(), set()),
     # the device restore stages run on ctx["device"], without the
-    # sharded-filter branch
-    "render/pipeline": ({"DeviceRestoreStage", "BandedDeviceRestoreStage"},
-                        set()),
+    # sharded-filter branch; with it went DeviceRestoreStage's ``keep``
+    # option (the whole-frame stage always leaves its result on the
+    # device), so build_render_pipeline builds it without one
+    "render/pipeline": ({"DeviceRestoreStage", "BandedDeviceRestoreStage",
+                         "build_render_pipeline"}, set()),
     "utils/native": ({"_build", "get_lib"}, set()),
     # the port's device-filter policy does not look at a JAX backend
     "config": ({"RuntimeConfig", "device_filters_enabled"}, set()),
