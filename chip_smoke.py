@@ -6,7 +6,8 @@ Drives the port's two main paths through their entry points:
   encode_lossless_many(imgs, EncodeOptions(use_device=True,
   entropy="prefix-device"))`` on 8 RGB 3840x2160 photos plus a 16-bit
   RGBA image, a ragged gray image and a smooth/noise pair, then decodes
-  every stream on the host and requires exact pixels;
+  the streams of photos 0 and 1 and of every other image on the host
+  and requires exact pixels;
 * the VarDCT serving decode ``libjxl_torch.api.decoder.decode_many`` on
   two batches: the DCT8 one, 8 3840x2160 streams cycled from the
   committed 4K fixtures (``tests/data/torch_vardct``) plus a ragged and
@@ -33,27 +34,42 @@ Drives the port's two main paths through their entry points:
   use_device=True))`` on the 8 4K photos, plus ``encode_lossy`` of a
   ragged 1001x1503 image: every stream equal to the same float32
   program's stream on the CPU (its stages compared one by one) and
-  against the float64 host encoder, and every stream decoded
-  by ``decode_many`` on the card, within +-1 of the host decode and
-  above a PSNR floor.
+  against the float64 host encoder (each value that differs explained
+  as a float64 value on a rounding boundary, or one that follows such a
+  value), and every stream decoded by ``decode_many`` on the card,
+  within +-1 of the host decode and above a PSNR floor;
+* the VarDCT lossy encode at efforts 5-7, ``encode_lossy_many(imgs,
+  LossyOptions(distance=1.0, effort=7, use_device=True))`` on photos 0
+  and 1, and ``encode_lossy`` of photo 2 at d2 e7, photo 0 at d1 e5 and
+  the ragged image at d5 e7 (``E7_JOBS``): the front end, the ACS cost
+  grids, the transform and the butteraugli loop on the card, the loop
+  and the EPF sharpness search through the Gaborish/EPF kernels; every
+  first pass held to the same program on the CPU stage by stage, photo
+  0's whole d1 e7 stream to the CPU's (equal, or the fallback gate), and
+  every stream through ``decode_many`` on the card within +-1 of the
+  host decode and beyond the PSNR and butteraugli values the CPU's
+  encode reaches.
 
 Phases: environment, build (nvcc for sm_90a, one process per kernel
-source, all at once, + the native host library), the pack kernel and
-the Gaborish/EPF kernels against their plain PyTorch versions at the
-shapes of the main paths, the encode path (with launch counts and the
-batch rate), its host decode check, the two decode batches (each with
-launch counts, the chunks handed to the device, the batch rate, the
-host-stage and the device-only time; the var batch also with one
-``torch.profiler`` run), their host decode check, the host stage alone
-on the pool and on threads, ``decode()`` on the card (launch counts per
-header and band window, times next to the host filters'), the
-host-routed ``decode_many`` (launches, time on threads against one
-``decode`` after another), the lossy encode (the batch rate, the device
-program's time, the host half's time, a ``torch.profiler`` run, its
-streams against the CPU's and the host encoder's, the round trip
-through ``decode_many``), and a check that neither JAX nor the JAX
-package was imported. The last two lines are the kernels' JSON record
-and ``{"ok": true, "device": ...}``. Any failure raises and exits
+source, all at once, + the native host library), the pack kernel and the
+Gaborish/EPF kernels against their plain PyTorch versions at the shapes
+of the main paths, the encode path (with launch counts and the batch
+rate), its host decode check, the two decode batches (each with launch
+counts, the chunks handed to the device, the batch rate, the host-stage
+and the device-only time; the var batch also with one ``torch.profiler``
+run), their host decode check, the host stage alone on the pool and on
+threads, ``decode()`` on the card (launch counts per header and band
+window, times next to the host filters'), the host-routed
+``decode_many`` (launches, time on threads against one ``decode`` after
+another), the lossy encode (the batch rate, the device program's time,
+the host half's time, a ``torch.profiler`` run, its streams against the
+CPU's and the host encoder's, the round trip through ``decode_many``),
+the effort 5-7 encode (the filter launches, the batch rate, the ``prof``
+stages, the device stages' CUDA-event times, a ``torch.profiler`` run,
+the checks above), the host decode of the lossless streams, and a check
+that neither JAX nor the JAX package was imported. The later phases
+print how far into the run they ended. The last two lines are the kernels' JSON
+record and ``{"ok": true, "device": ...}``. Any failure raises and exits
 non-zero before those lines. The script reaches the codec only through
 ``libjxl_torch`` (and ``bench.make_image`` for its photos).
 
@@ -106,6 +122,23 @@ BAND_ROWS = 256                 # decode_rows' band height
 # it encodes them on the CPU
 RAGGED_SEED = 23
 PSNR_FLOOR = 40.5
+# the effort 5-7 encode (name, make_image seed, h, w, distance, effort):
+# photos 0 and 1 at d1 e7 through encode_lossy_many (Gaborish + EPF1),
+# photo 2 at d2 e7 (EPF1 + EPF2), photo 0 at d1 e5 (no loop) and the
+# ragged image at d5 e7 (EPF0-2, the two-candidate sharpness search);
+# each stream's PSNR floor (dB) and butteraugli ceiling: 0.05 beyond
+# the values that tests/data/torch_vardct_var/e7_quality.py measures for
+# these encodes on the CPU (on the card machine's CPU: 40.5802, 1.5871;
+# 40.5784, 1.4905; 39.5642, 1.9787; 40.6236, 1.6440; 37.5690, 2.2589)
+E7_JOBS = (("photo0_d1_e7", 0, 2160, 3840, 1.0, 7),
+           ("photo1_d1_e7", 1, 2160, 3840, 1.0, 7),
+           ("photo2_d2_e7", 2, 2160, 3840, 2.0, 7),
+           ("photo0_d1_e5", 0, 2160, 3840, 1.0, 5),
+           ("ragged_d5_e7", RAGGED_SEED, 1001, 1503, 5.0, 7))
+E7_FLOORS = {"photo0_d1_e7": (40.53, 1.637), "photo1_d1_e7": (40.528, 1.540),
+             "photo2_d2_e7": (39.514, 2.028), "photo0_d1_e5": (40.573, 1.694),
+             "ragged_d5_e7": (37.519, 2.308)}
+E7_TOL = dict(qf=1e-4, grids=1e-3, block_sums=1e-3, boundary=1e-3)
 
 
 def card_line() -> str:
@@ -686,8 +719,8 @@ def psnr(a: np.ndarray, b: np.ndarray) -> float:
 def _quantized(img, opts, dev) -> tuple:
     """The quantized AC (DC slot zeroed), DC and CfL maps that
     ``encode_lossy`` codes for ``img`` with ``opts``; the host encoder's
-    float64 DCT coefficients (None on the device path) and the DC
-    steps."""
+    float64 DCT coefficients (None on the device path), the DC steps and
+    the encoder's state."""
     import copy
 
     from libjxl_torch.vardct.frame_enc import encode_lossy
@@ -700,7 +733,7 @@ def _quantized(img, opts, dev) -> tuple:
     return ([q_ac] + [np.asarray(st[k], np.int64)
                       for k in ("q_dc", "ytox", "ytob")],
             o._aux.get("stored_dct"),
-            st["quantizer"].mul_dc(st["matrices"].dc_quant))
+            st["quantizer"].mul_dc(st["matrices"].dc_quant), st)
 
 
 def _dc_before_rounding(stored, mul_dc) -> np.ndarray:
@@ -711,6 +744,85 @@ def _dc_before_rounding(stored, mul_dc) -> np.ndarray:
     q_y = np.round(dcy / mul_dc[1])
     return np.stack([dcx / mul_dc[0], dcy / mul_dc[1],
                      (dcb - q_y * mul_dc[1]) / mul_dc[2]], -1)
+
+
+def _boundary_dist(v, th=None):
+    """How far float64 values before rounding lie from where a float32
+    rounding can land on the other side: a .5 boundary, or the dead-zone
+    threshold ``th`` (zero below it)."""
+    a = np.abs(np.asarray(v, np.float64))
+    dist = np.abs(a - np.floor(a) - 0.5)
+    return dist if th is None else np.minimum(dist, np.abs(a - th))
+
+
+def _dct8_thresholds(t0: float, t_rest: float) -> np.ndarray:
+    """The e<=4 encode's dead-zone thresholds (stored layout)."""
+    th = np.full((8, 8), t_rest)
+    th[:4, :4] = t0
+    th[0, 0] = 0.0
+    return th.reshape(64)
+
+
+def _dct8_float64(stored64, st) -> dict:
+    """In float64, from an 8x8 DCT ``stored64`` (yb, xb, 3, 64) and the
+    encoder state ``st`` (its quantizer, raw quant field, x_qm_scale and
+    CfL maps): the AC values before rounding (``v``, (yb, xb, 3, 64), X
+    and B against ``st``'s CfL maps) with their thresholds (``th``,
+    (3, 64)), and the per-64x64-tile CfL ratios before rounding (``rx``,
+    ``rb``), as the encoder computes them."""
+    from libjxl_torch.vardct.frame_dec import adjust_quant_bias
+    quant = st["quantizer"]
+    rq = np.asarray(st["raw_quant"], np.float64)
+    yb, xb = rq.shape
+    table = st["matrices"].tables[0].reshape(3, 64).astype(np.float64)
+    inv = 1.0 / table
+    qac = quant.scale * rq
+    x_qm_mul = 1.25 ** (st["x_qm_scale"] - 2)
+    th_y, th_xb = _dct8_thresholds(0.56, 0.62), _dct8_thresholds(0.58, 0.62)
+    vy = stored64[:, :, 1] * (inv[1] * qac[:, :, None])
+    q_y = np.where(np.abs(vy) >= th_y, np.rint(vy), 0.0)
+    y_rt = adjust_quant_bias(q_y.reshape(-1, 64), 1).reshape(yb, xb, 64) * \
+        (table[1] * (quant.inv_global_scale / rq)[:, :, None])
+    ty, tx, cs = -(-yb // 8), -(-xb // 8), 1.0 / 84.0
+
+    def tiles(a):
+        ap = np.zeros((ty * 8, tx * 8, a.shape[2]))
+        ap[:yb, :xb] = a
+        return ap.reshape(ty, 8, tx, 8, -1).transpose(0, 2, 1, 3, 4).reshape(
+            ty, tx, -1)
+
+    yt = tiles(y_rt[:, :, 1:])
+    denom = np.einsum("ijk,ijk->ij", yt, yt)
+    dsafe = np.where(denom >= 1e-9, denom, 1.0)
+    rx = np.einsum("ijk,ijk->ij", tiles(stored64[:, :, 0, 1:]), yt) / \
+        dsafe / cs
+    rb = (np.einsum("ijk,ijk->ij", tiles(stored64[:, :, 2, 1:]), yt) /
+          dsafe - 1.0) / cs
+    fx = np.repeat(np.repeat(st["ytox"], 8, 0), 8, 1)[:yb, :xb] * cs
+    fb = 1.0 + np.repeat(np.repeat(st["ytob"], 8, 0), 8, 1)[:yb, :xb] * cs
+    vx = (stored64[:, :, 0] - fx[:, :, None] * y_rt) * \
+        (inv[0] * (qac * x_qm_mul)[:, :, None])
+    vb = (stored64[:, :, 2] - fb[:, :, None] * y_rt) * \
+        (inv[2] * qac[:, :, None])
+    return dict(v=np.stack([vx, vy, vb], 2), th=np.stack([th_xb, th_y, th_xb]),
+                rx=rx, rb=rb)
+
+
+def _explain(label: str, where, dist, follows, why: str) -> None:
+    """Print how many values of ``label`` differ and why; fail on one
+    that neither lies within E7_TOL["boundary"] of a rounding boundary in
+    float64 (``dist``) nor follows another value that differs
+    (``follows``, described by ``why``)."""
+    tol = E7_TOL["boundary"]
+    alone = [d for d, f in zip(dist, follows) if not f]
+    print(f"  {len(where)} {label} values differ: {len(alone)} whose float64 "
+          f"value lies within {max(alone, default=0.0)!r} of a rounding "
+          f"boundary, {sum(follows)} {why}", flush=True)
+    if max(alone, default=0.0) > tol:
+        bad = [w for w, d, f in zip(where, dist, follows)
+               if not f and d > tol][:3]
+        raise AssertionError(f"{label} values differ away from a rounding "
+                             f"boundary, e.g. at {bad}")
 
 
 def encode_drift(dev, name: str, img, opts, got: bytes) -> None:
@@ -725,8 +837,12 @@ def encode_drift(dev, name: str, img, opts, got: bytes) -> None:
     float32 rounding of a .5 boundary rounds the other way there (in the
     JAX package too): against it this prints how many quantized values
     differ, the DC values before rounding on both sides where a DC
-    differs, and the size ratio, and fails if a value is off by more
-    than 1 or the sizes by more than 1%."""
+    differs, and the size ratio. It fails if a value is off by more than
+    1, the sizes by more than 1%, or a value differs that neither lies
+    within E7_TOL["boundary"] of a rounding boundary in float64 nor
+    follows another value that differs: a B DC its block's Y DC, an X or
+    B AC value its Y value or its tile's CfL factor, a CfL factor a Y
+    value of its tile."""
     import torch
 
     from libjxl_torch.models import vardct_pipeline as VP
@@ -774,7 +890,7 @@ def encode_drift(dev, name: str, img, opts, got: bytes) -> None:
               f"encoder's ({len(got)} bytes)", flush=True)
         return
     q_dev = _quantized(img, opts, dev)[0]
-    q_host, stored64, mul64 = _quantized(img, host_opts, None)
+    q_host, stored64, mul64, st = _quantized(img, host_opts, None)
     diffs = [np.abs(a - b) for a, b in zip(q_dev, q_host)]
     ratio = len(got) / len(want)
     print(f"lossy encode {name}: the device stream differs from the host "
@@ -791,23 +907,36 @@ def encode_drift(dev, name: str, img, opts, got: bytes) -> None:
     # boundary or is a B value whose block's Y differs (B is coded less
     # the dequantized Y)
     where = list(zip(*np.nonzero(diffs[1])))
-    near = [abs(float(dc64[i]) - float(np.floor(dc64[i]) + 0.5))
-            for i in where]
-    follows = [c == 2 and diffs[1][by, bx, 1] > 0 for by, bx, c in where]
-    boundary = [d for d, f in zip(near, follows) if not f]
-    print(f"  {len(where)} DC values differ: {len(boundary)} whose float64 "
-          f"value lies within {max(boundary, default=0.0)!r} of a .5 "
-          f"boundary, {sum(follows)} B values whose block's Y differs",
-          flush=True)
+    _explain("DC", where, [float(_boundary_dist(dc64[i])) for i in where],
+             [c == 2 and diffs[1][by, bx, 1] > 0 for by, bx, c in where],
+             "B values whose block's Y differs")
     for (by, bx, c), _ in zip(where, range(3)):
         print(f"  DC ({by}, {bx}) channel {'XYB'[c]}: device "
               f"{int(q_dev[1][by, bx, c])} from float32 "
               f"{float(dc32[by, bx, c])!r}, host "
               f"{int(q_host[1][by, bx, c])} from float64 "
               f"{float(dc64[by, bx, c])!r}", flush=True)
-    if max(boundary, default=0.0) > 1e-3:
-        raise AssertionError(f"lossy encode {name}: a DC value differs from "
-                             "the host's away from a rounding boundary")
+    # each AC value that differs: its float64 value next to a .5 boundary
+    # or the dead-zone threshold, or an X or B value that follows its Y
+    # (through the round trip) or its tile's CfL factor
+    f64 = _dct8_float64(stored64, st)
+    where = [tuple(i) for i in np.argwhere(diffs[0] > 0)]
+    _explain("AC", where,
+             [float(_boundary_dist(f64["v"][i], f64["th"][i[2], i[3]]))
+              for i in where],
+             [c != 1 and bool(diffs[0][by, bx, 1, k] > 0 or
+                              diffs[2 if c == 0 else 3][by // 8, bx // 8])
+              for by, bx, c, k in where],
+             "X or B values whose Y or tile CfL factor differs")
+    # each CfL factor that differs: its float64 least-squares ratio next
+    # to a .5 boundary, or a Y value of its tile differs
+    for m, key in ((2, "rx"), (3, "rb")):
+        where = [tuple(i) for i in np.argwhere(diffs[m] > 0)]
+        _explain(("ytox", "ytob")[m - 2], where,
+                 [float(_boundary_dist(f64[key][i])) for i in where],
+                 [bool(diffs[0][ty * 8:ty * 8 + 8, tx * 8:tx * 8 + 8, 1,
+                                1:].any()) for ty, tx in where],
+                 "of tiles where a Y value differs")
     if max(int(d.max()) for d in diffs) > 1 or abs(ratio - 1) > 0.01:
         raise AssertionError(f"lossy encode {name}: device and host "
                              "streams drift too far apart")
@@ -918,6 +1047,390 @@ def phase_lossy_encode(dev, card: str, photos: list, workers: int) -> None:
                              f"{PSNR_FLOOR}: {values}")
 
 
+def _e7_images(photos: list) -> dict:
+    """The images of E7_JOBS by name (the 4K photos are the main path's)."""
+    from bench import make_image
+    return {name: (photos[seed] if h == 2160 else make_image(seed, h, w))
+            for name, seed, h, w, _, _ in E7_JOBS}
+
+
+def _loop_filter(data: bytes):
+    """The stream's first frame's loop filter (Gaborish, EPF passes)."""
+    from libjxl_torch.api.codestream import parse_codestream
+    from libjxl_torch.api.container import extract_codestream
+    return parse_codestream(extract_codestream(data))[1][0].header.loop_filter
+
+
+def _e7_launches(stream: bytes, d: float, effort: int) -> list:
+    """The Gaborish and EPF0/1/2 launches of one effort >= 5 encode on the
+    card: at effort >= 7 each of the 2 loop iterations filters once, and
+    the sharpness search filters with Gaborish once and with the EPF
+    chain once per candidate (3, or 2 above distance 4.5)."""
+    if effort < 7:
+        return [0, 0, 0, 0]
+    lf = _loop_filter(stream)
+    k = int(lf.epf_iters)
+    chains = 2 + ((2 if d > 4.5 else 3) if k > 0 and d >= 0.5 else 0)
+    gab = int(lf.gab) * (2 + (1 if k > 0 and d >= 0.5 else 0))
+    return [gab] + [chains * int(k >= n) for n in (3, 1, 2)]
+
+
+def _first_pass_on_card(dev, img, d: float, effort: int) -> tuple:
+    """The iterated encode's first pass on the card (``_recon_only``), with
+    what each device stage was given and returned: (state, aux, {stage:
+    (args, kwargs, result)})."""
+    from libjxl_torch.models import vardct_heuristics as TH
+    from libjxl_torch.models import vardct_transform as TT
+    from libjxl_torch.vardct.frame_enc import LossyOptions, encode_lossy
+
+    seen, saved = {}, []
+    for mod, fn, key in ((TH, "front_device", "front"),
+                         (TH, "acs_grids_device", "grids"),
+                         (TT, "transform_quantize_device", "transform")):
+        orig = getattr(mod, fn)
+        saved.append((mod, fn, orig))
+
+        def spy(*a, _orig=orig, _key=key, **k):
+            seen[_key] = (a, k, _orig(*a, **k))
+            return seen[_key][2]
+
+        setattr(mod, fn, spy)
+    try:
+        aux = {}
+        o = LossyOptions(distance=d, effort=effort, use_device=True)
+        o._aux, o._in_iteration, o._recon_only = aux, True, True
+        encode_lossy(img, o, device=dev)
+    finally:
+        for mod, fn, orig in saved:
+            setattr(mod, fn, orig)
+    return aux.pop("recon_state"), aux, seen
+
+
+def _explain_transform(card: dict, cpu: dict, args: tuple) -> None:
+    """Explain each quantized coefficient and CfL factor where the card's
+    transform differs from the CPU's, from float64 values before
+    rounding on the card's input (``_explain``)."""
+    from libjxl_torch.vardct.enc_acs import _thresholds, transform_all
+    from libjxl_torch.vardct.frame_dec import adjust_quant_bias
+
+    xyb_d, acs, anchors, rq, matrices, quant, x_qm_mul = args
+    qd = {k: v["q"] for k, v in card["blocks_q"].items()}
+    qc = {k: v["q"] for k, v in cpu["blocks_q"].items()}
+    diff_x = card["ytox"] != cpu["ytox"]
+    diff_b = card["ytob"] != cpu["ytob"]
+    n_q = sum(int((qd[k] != qc[k]).sum()) for k in qd)
+    if not n_q and not diff_x.any() and not diff_b.any():
+        return
+    xyb64 = xyb_d.cpu().numpy().astype(np.float64)
+    yb, xb = acs.shape
+    # CfL factors: the whole-frame 8x8 DCT's least squares in float64
+    from libjxl_torch.vardct.dct import dct_matrix
+    m8 = dct_matrix(8)
+    blocks = xyb64.reshape(3, yb, 8, xb, 8).transpose(1, 3, 0, 2, 4)
+    stored8 = ((m8 @ blocks) @ m8.T).transpose(0, 1, 2, 4, 3).reshape(
+        yb, xb, 3, 64)
+    f64 = _dct8_float64(stored8, dict(
+        quantizer=quant, raw_quant=rq, matrices=matrices, x_qm_scale=2,
+        ytox=card["ytox"], ytob=card["ytob"]))
+    y_tiles = np.zeros((-(-yb // 8), -(-xb // 8)), bool)
+    for (by, bx), q in qd.items():
+        if (q[1] != qc[(by, bx)][1]).any():
+            y_tiles[by // 8, bx // 8] = True
+    for label, diff, key in (("ytox", diff_x, "rx"), ("ytob", diff_b, "rb")):
+        where = [tuple(i) for i in np.argwhere(diff)]
+        _explain(f"transform {label}", where,
+                 [float(_boundary_dist(f64[key][i])) for i in where],
+                 [bool(y_tiles[i]) for i in where],
+                 "of tiles where a Y value differs")
+    # coefficients: float64 values of each class, as transform_all and
+    # finish_chroma compute them against the card's CfL maps
+    cc = {}
+    transform_all(xyb64, acs, anchors, rq, matrices, quant, x_qm_mul,
+                  coef_cache=cc)
+    where, dist, follows = [], [], []
+    for s in sorted(k for k in cc if isinstance(k, int)):
+        by0, bx0 = np.nonzero(anchors & (acs == s))
+        from libjxl_torch.vardct.ac_strategy import COVERED_X, COVERED_Y
+        nby, nbx = COVERED_Y[s], COVERED_X[s]
+        tab = matrices.table_for_strategy(s).reshape(3, -1)
+        inv = 1.0 / tab
+        qf = rq[by0, bx0].astype(np.float64)
+        qac = quant.scale * qf
+        th = [_thresholds(nby, nbx, False), _thresholds(nby, nbx, True),
+              _thresholds(nby, nbx, False)]
+        vy = cc[s][1] * (inv[1][None] * qac[:, None])
+        q_y = np.where(np.abs(vy) >= th[1], np.rint(vy), 0.0)
+        y_rt = adjust_quant_bias(q_y, 1) * tab[1] * \
+            (quant.inv_global_scale / qf)[:, None]
+        cs = 1.0 / 84.0
+        fx = card["ytox"][by0 // 8, bx0 // 8] * cs
+        fb = 1.0 + card["ytob"][by0 // 8, bx0 // 8] * cs
+        v = [(cc[s][0] - fx[:, None] * y_rt) * (inv[0] * (qac * x_qm_mul)[
+            :, None]), vy, (cc[s][2] - fb[:, None] * y_rt) * (
+            inv[2] * qac[:, None])]
+        for i, (by, bx) in enumerate(zip(by0, bx0)):
+            a, b = qd[(by, bx)], qc[(by, bx)]
+            for c, k in np.argwhere(a != b):
+                where.append((int(by), int(bx), int(c), int(k)))
+                dist.append(float(_boundary_dist(v[c][i, k], th[c][k])))
+                follows.append(c != 1 and bool(
+                    a[1, k] != b[1, k] or
+                    (diff_x if c == 0 else diff_b)[by // 8, bx // 8]))
+    _explain("transform coefficient", where, dist, follows,
+             "X or B values whose Y or tile CfL factor differs")
+
+
+def e7_first_pass_check(dev, card: str, name: str, img, d: float,
+                        effort: int) -> dict:
+    """The first pass's device stages on the card against the same program
+    on the CPU, each given the card's inputs: the quant field within
+    E7_TOL["qf"] relative; at effort >= 7 the ACS grids within
+    E7_TOL["grids"] of each grid's max and the ACS map chosen from the
+    CPU's grids equal; the transform's quantized coefficients and CfL
+    maps equal or explained (``_explain_transform``); and the first loop
+    iteration's block sums within E7_TOL["block_sums"]. Returns the
+    first pass's products for the timings."""
+    import torch
+
+    from libjxl_torch.models import vardct_heuristics as TH
+    from libjxl_torch.models import vardct_transform as TT
+    from libjxl_torch.models.vardct_loop import LoopState
+    from libjxl_torch.vardct.enc_acs import choose_acs
+
+    h, w = img.shape[:2]
+    state, aux, seen = _first_pass_on_card(dev, img, d, effort)
+    a, k, (qf_d, xyb_d, pre_d) = seen["front"]
+    qf_c, xyb_c, pre_c = TH.front_device(*a, **dict(k, device="cpu"))
+    qf_rel = float((qf_d.cpu() - qf_c).abs().max() / qf_c.abs().max())
+    line = (f"e7 phase {name}, the first pass on the card against the CPU: "
+            f"quant field max rel diff {qf_rel}, padded XYB max abs diff "
+            f"{float((xyb_d.cpu() - xyb_c).abs().max())}")
+    if qf_rel > E7_TOL["qf"]:
+        raise AssertionError(line)
+    out = dict(state=state, aux=aux, front=seen["front"])
+    if effort < 7:
+        print(line + " (effort 5: the grids and the transform run on the "
+              "host)", flush=True)
+        return out
+    a, _, grids_d = seen["grids"]
+    grids_c = TH.acs_grids_device(a[0].cpu(), *a[1:])
+    g_rel = max(float(np.abs(x - y).max() / max(np.abs(y).max(), 1e-30))
+                for s in grids_c for x, y in zip(grids_d[s], grids_c[s])
+                if y.size)
+    xyb_host = aux["xyb_cache"][0]
+    acs_c, anc_c, _ = choose_acs(
+        xyb_host, a[1], a[2], a[3], d, try_small=True, try_64=True,
+        try_32=True, grids=grids_c)
+    same_acs = bool(np.array_equal(acs_c, aux["acs"]) and
+                    np.array_equal(anc_c, aux["anchors"]))
+    a, _, tq_d = seen["transform"]
+    tq_c = TT.transform_quantize_device(a[0].cpu(), *a[1:])
+    n_q = sum(int((v["q"] != tq_c["blocks_q"][key]["q"]).sum())
+              for key, v in tq_d["blocks_q"].items())
+    dc_diff = float(np.abs(tq_d["dc_float"] - tq_c["dc_float"]).max())
+    # the first loop iteration on the card and on the CPU
+    x_qm_mul = 1.25 ** (state["x_qm_scale"] - 2)
+    qf = aux["qf_field"].copy()
+    ls = LoopState(state, aux, None, d, x_qm_mul, h, w, orig_u8=img,
+                   device=dev)
+    cpu_aux = dict(aux, coef_cache=dict(aux["coef_cache"], dev={
+        s: (v.cpu() if isinstance(v, torch.Tensor) else
+            tuple(t.cpu() for t in v))
+        for s, v in aux["coef_cache"]["dev"].items()}))
+    sums_d = ls.block_sums(qf)
+    sums_c = LoopState(state, cpu_aux, None, d, x_qm_mul, h, w,
+                       orig_u8=img, device="cpu").block_sums(qf)
+    s_rel = float(np.abs(sums_d - sums_c).max() / sums_c.max())
+    line += (f"; ACS grids max rel diff {g_rel}, ACS map from the CPU's "
+             f"grids {'equal' if same_acs else 'DIFFERENT'}; transform: "
+             f"quantized coefficients that differ {n_q} of "
+             f"{sum(v['q'].size for v in tq_c['blocks_q'].values())}, "
+             f"ytox/ytob that differ "
+             f"{int((tq_d['ytox'] != tq_c['ytox']).sum())}/"
+             f"{int((tq_d['ytob'] != tq_c['ytob']).sum())}, DC grid max abs "
+             f"diff {dc_diff}; first loop iteration's block sums max rel "
+             f"diff {s_rel}")
+    print(line, flush=True)
+    if g_rel > E7_TOL["grids"] or not same_acs or \
+            s_rel > E7_TOL["block_sums"] or dc_diff > 1e-4:
+        raise AssertionError(f"e7 phase {name}: a first-pass stage on the "
+                             "card is off the CPU's")
+    _explain_transform(tq_d, tq_c, a)
+    out.update(loop=ls, qf=qf, transform=a)
+    return out
+
+
+def phase_lossy_e7(dev, card: str, photos: list, workers: int) -> dict:
+    """The effort 5-7 VarDCT encode on the card (E7_JOBS): photos 0 and 1
+    at d1 e7 through ``encode_lossy_many``, the others through
+    ``encode_lossy``, the Gaborish/EPF launches of that run (returned for
+    the kernels line) checked against the count each stream's loop
+    filter implies; the batch rate; the prof stages of one encode; the
+    CUDA-event times of the device stages; the device idle share of one
+    profiled encode; every stream's first pass against the CPU
+    (``e7_first_pass_check``); photo 0's d1 e7 stream against the whole
+    encode on the CPU (equal, or the fallback gate: the same ACS map,
+    size within 1%, butteraugli within 0.05); every stream through
+    ``decode_many`` on the card, within +-1 of the host decode, and
+    above its PSNR floor and below its butteraugli ceiling."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    from libjxl_torch.api.decoder import _decode_prefilter, decode, decode_many
+    from libjxl_torch.metrics.butteraugli import (
+        butteraugli_diffmap, butteraugli_distance_srgb,
+    )
+    from libjxl_torch.models import vardct_heuristics as TH
+    from libjxl_torch.models import vardct_transform as TT
+    from libjxl_torch.models.vardct_loop import _loop_step
+    from libjxl_torch.parallel import host_pool
+    from libjxl_torch.utils import prof
+    from libjxl_torch.vardct.enc_roundtrip import linear_clipped
+    from libjxl_torch.vardct.frame_enc import (
+        LossyOptions, encode_lossy, encode_lossy_many,
+    )
+
+    imgs = _e7_images(photos)
+    opts = {name: LossyOptions(distance=d, effort=e, use_device=True)
+            for name, _, _, _, d, e in E7_JOBS}
+    pair = ["photo0_d1_e7", "photo1_d1_e7"]
+    mp = sum(imgs[n].shape[0] * imgs[n].shape[1] for n in pair) / 1e6
+
+    # the main run: the launches of the filter kernels, counted from 0
+    _reset_filter_counts()
+    t0 = time.perf_counter()
+    streams = dict(zip(pair, encode_lossy_many(
+        [imgs[n] for n in pair], opts[pair[0]], workers=workers,
+        device=dev)))
+    t_cold = time.perf_counter() - t0
+    prof.enabled = True
+    stages = {}
+    try:
+        for name, _, _, _, d, e in E7_JOBS:
+            if name in pair:
+                continue
+            prof.reset()
+            t0 = time.perf_counter()
+            streams[name] = encode_lossy(imgs[name], opts[name], device=dev)
+            stages[name] = dict(seconds=time.perf_counter() - t0,
+                                **prof.report())
+    finally:
+        prof.enabled = False
+    counts = _filter_counts()
+    got = [counts["gaborish"]] + counts["epf_passes"]
+    want = [sum(x) for x in zip(*(
+        _e7_launches(streams[name], d, e)
+        for name, _, _, _, d, e in E7_JOBS))]
+    print(f"e7 phase: Gaborish and EPF0/1/2 launches {got} (from each "
+          f"stream's loop filter: {want}); 2 4K photos at d1 e7 in {t_cold} "
+          f"s (cold, encode_lossy_many on {workers} threads); sizes "
+          f"{ {n: len(v) for n, v in streams.items()} } bytes", flush=True)
+    if got != want or not all(got):
+        raise AssertionError(f"e7 phase: filter launches {got}, want {want}")
+    for name, st in stages.items():
+        print(f"e7 phase {name}: {st.pop('seconds')} s alone; prof stages "
+              f"(s, calls): {st}, on {card}", flush=True)
+
+    rates = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        again = encode_lossy_many([imgs[n] for n in pair], opts[pair[0]],
+                                  workers=workers, device=dev)
+        rates.append(mp / (time.perf_counter() - t0))
+    if again != [streams[n] for n in pair]:
+        raise AssertionError("e7 phase: a repeated encode gave other "
+                             "streams")
+    print(f"e7 phase batch, 2 x 3840x2160 at d1 e7 (encode_lossy_many, "
+          f"{workers} threads): cold {mp / t_cold} MP/s, warm {rates} MP/s "
+          f"(median {statistics.median(rates)}, spread {min(rates)}-"
+          f"{max(rates)}), on {card}", flush=True)
+    prof.enabled = True
+    prof.reset()
+    t0 = time.perf_counter()
+    encode_lossy(imgs[pair[0]], opts[pair[0]], device=dev)
+    rep = prof.report()
+    prof.enabled = False
+    print(f"e7 phase photo0_d1_e7 alone: {time.perf_counter() - t0} s; prof "
+          f"stages (s, calls): {rep}, on {card}", flush=True)
+    _profile(lambda: encode_lossy(imgs[pair[0]], opts[pair[0]], device=dev),
+             card, "warm e7 encode of photo0_d1_e7")
+
+    # every stream's first pass against the CPU; photo 0's products time
+    # the device stages
+    checks = {}
+    for name, _, _, _, d, e in E7_JOBS:
+        checks[name] = e7_first_pass_check(dev, card, name, imgs[name], d, e)
+    c0 = checks[pair[0]]
+    a, k, _ = c0["front"]
+    ms = dict(front_device=_time_ms(lambda: TH.front_device(*a, **k), 3))
+    _, targs = TT.device_inputs(*c0["transform"])
+    ms["transform_quantize"] = _time_ms(
+        lambda: TT.transform_quantize(*targs), 3)
+    sargs = c0["loop"].step_args(c0["qf"])
+    ms["loop_step"] = _time_ms(lambda: _loop_step(**sargs, score=True), 3)
+    lin = linear_clipped(_loop_step(**sargs, score=False))
+    orig = sargs["orig_lin"]
+    ms["butteraugli_diffmap_4k"] = _time_ms(
+        lambda: butteraugli_diffmap(orig, lin, hf_asymmetry=0.8), 3)
+    print(f"e7 phase device stages, CUDA-event ms at 3840x2160: {ms}, on "
+          f"{card}", flush=True)
+    del checks, c0, targs, sargs, lin, orig
+
+    # photo 0 at d1 e7, the whole encode again on the CPU
+    t0 = time.perf_counter()
+    on_cpu = encode_lossy(imgs[pair[0]], opts[pair[0]], device="cpu")
+    cpu_s = time.perf_counter() - t0
+    got0 = streams[pair[0]]
+    line = (f"e7 phase photo0_d1_e7: the card's stream {len(got0)} bytes, "
+            f"the CPU's {len(on_cpu)} ({cpu_s} s on the CPU); size "
+            f"difference {len(got0) - len(on_cpu)} bytes")
+    if got0 == on_cpu:
+        print(line + "; the streams are equal", flush=True)
+    else:
+        acs = [_decode_prefilter(x)[1] for x in (got0, on_cpu)]
+        same = all(np.array_equal(getattr(acs[0], f), getattr(acs[1], f))
+                   for f in ("acs_raw", "acs_anchor"))
+        dists = [butteraugli_distance_srgb(
+            imgs[pair[0]], decode(x, device=dev)[:, :, :3], device=dev)
+            for x in (got0, on_cpu)]
+        print(line + f"; the streams differ: ACS map "
+              f"{'equal' if same else 'DIFFERENT'}, butteraugli of the "
+              f"decodes {dists}", flush=True)
+        if not same or abs(len(got0) / len(on_cpu) - 1) > 0.01 or \
+                abs(dists[0] - dists[1]) > 0.05:
+            raise AssertionError("e7 phase photo0_d1_e7: the card's stream "
+                                 "fails the fallback gate against the CPU's")
+
+    # the round trip
+    names = [n for n, *_ in E7_JOBS]
+    decode_many.device_frames = 0
+    outs = decode_many([streams[n] for n in names], workers=workers,
+                       device=dev)
+    if decode_many.device_frames != len(names):
+        raise AssertionError(f"decode_many reconstructed "
+                             f"{decode_many.device_frames} of {len(names)} "
+                             "e7 phase streams on the card")
+    with ProcessPoolExecutor(
+            max_workers=min(len(names), os.cpu_count() or 1),
+            mp_context=multiprocessing.get_context("spawn"),
+            initializer=host_pool._worker_init) as ex:
+        host = list(ex.map(decode, [streams[n] for n in names]))
+    quality = {}
+    for name, out, want in zip(names, outs, host):
+        diff = int(np.abs(out.astype(np.int64) - want.astype(np.int64)).max())
+        quality[name] = (diff, psnr(out, imgs[name]),
+                         butteraugli_distance_srgb(imgs[name], out[:, :, :3],
+                                                   device=dev))
+    print(f"e7 phase round trip through decode_many on the card (max diff "
+          f"from the host decode, PSNR dB, butteraugli on the card): "
+          f"{quality}; floors and ceilings {E7_FLOORS}", flush=True)
+    for name, (diff, p, dist) in quality.items():
+        if diff > 1 or p < E7_FLOORS[name][0] or dist > E7_FLOORS[name][1]:
+            raise AssertionError(f"e7 phase {name}: round trip {quality[name]}"
+                                 f" against {E7_FLOORS[name]}")
+    return counts
+
+
 def _leaves(frame):
     """The arrays of a FrameRecon or FrameReconVar, in a fixed order."""
     for name, v in zip(frame._fields, frame):
@@ -981,8 +1494,9 @@ def build_kernels(sources) -> None:
 
 def filter_records(filters: dict, counts: dict) -> list:
     """The kernels-line records of Gaborish and of each EPF pass, with the
-    launches of the decode batches' runs (``counts``; None where they were
-    not driven)."""
+    launches of the main paths' runs (``counts``: the decode batches,
+    ``decode()`` and the effort 5-7 encode; None where they were not
+    driven)."""
     recs = [dict(name="gaborish", route="cuda", source=FILTERS_SOURCE,
                  replaces=GAB_REPLACES, launches=counts.get("gaborish"),
                  **filters["gab"])]
@@ -1008,6 +1522,12 @@ def main() -> None:
     )
     from libjxl_torch.models.pack_kernel import pack_chunks
     from libjxl_torch.parallel import host_pool
+
+    t_main = time.perf_counter()
+
+    def done(phase: str) -> None:
+        print(f"-- {phase}: done {time.perf_counter() - t_main} s into the "
+              "run", flush=True)
 
     # 1. environment
     card = card_line()
@@ -1090,19 +1610,31 @@ def main() -> None:
     del outputs
     phase_host_stage(card, batches, workers)
 
+    done("the decode batches")
+
     # 6. decode() with its filters on the card
     counts["decode()"] = phase_decode_api(dev, card)
     phase_host_routed(dev, card, photos, workers)
+    done("decode() and the host-routed decode_many")
 
-    # 7. the lossy encode, and its round trip through decode_many
+    # 7. the lossy encode, and its round trip through decode_many: at
+    # effort 3, then at efforts 5-7 (whose filter launches join the
+    # kernels line)
     phase_lossy_encode(dev, card, photos, workers)
+    done("the effort-3 lossy encode")
+    counts["lossy e5-e7"] = phase_lossy_e7(dev, card, photos, workers)
     host_pool.shutdown()
+    done("the effort 5-7 lossy encode")
 
-    # 8. decode every lossless stream on the host
-    jobs = ([(n, s, im) for n, s, im in zip(names, streams, batch)]
+    # 8. decode the lossless streams on the host: photos 0 and 1 (the 8
+    # photos are alike; each repeated encode above equals the first) and
+    # every other image
+    jobs = ([(n, s, im) for n, s, im in zip(names, streams, batch)
+             if n not in names[2:len(photos)]]
             + [("rgba16 two-pass", two_pass, extras["rgba16"]),
                ("gray ans", ans, extras["gray"])])
     phase_decode(jobs)
+    done("the host decode of the lossless streams")
 
     # 9. neither jax nor the JAX package was imported
     loaded = [m for m in sys.modules
@@ -1114,7 +1646,8 @@ def main() -> None:
     # 10. results
     print(card_line(), flush=True)
     rec["bound_share"] = rec["bound_ms"] / rec["ms"]
-    # the filter launches of both decode batches and of decode()
+    # the filter launches of both decode batches, of decode() and of the
+    # effort 5-7 encode
     both = dict(gaborish=sum(c["gaborish"] for c in counts.values()),
                 epf_passes=[sum(c["epf_passes"][p] for c in counts.values())
                             for p in range(3)])

@@ -27,6 +27,10 @@ class RuntimeConfig:
     # 4 MP, the reference's threshold, so that the port and the JAX
     # package filter every frame size on the same side.
     device_filters: bool | None = None
+    # The effort >= 5 device path: run the variable-block forward
+    # transforms + quantization on the device (models/vardct_transform)
+    # instead of on the host from the fetched XYB plane.
+    device_transform: bool = True
     # decode() switches to the banded low-memory decoder above this
     # many pixels (low_memory_render_pipeline.cc spirit): pixel
     # intermediates stay bounded by ~3 group rows. 64 MP default.

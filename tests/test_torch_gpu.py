@@ -288,3 +288,71 @@ def test_device_encode_program_on_card_equals_cpu():
             VP._frame_body(px.to(d), *args, *sc[6:]))
     for a, b in zip(got["cuda"], got["cpu"]):
         assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.gpu
+def test_diffmap_4k_on_card_matches_cpu():
+    """The butteraugli diffmap of a 3840x2160 pair on the card within 1e-3
+    of its max of the same float32 program on the CPU (cuDNN's blurs and
+    the card's exp/log round differently)."""
+    from _torch_e7 import photo
+    from libjxl_torch.color.xyb import srgb_to_linear
+    from libjxl_torch.metrics.butteraugli import butteraugli_diffmap
+    dev = _card()
+    img = photo(2160, 3840, 5)
+    rng = np.random.default_rng(5)
+    out = np.clip(img.astype(int) + rng.integers(-5, 6, img.shape), 0,
+                  255).astype(np.uint8)
+    a, b = (np.asarray(srgb_to_linear(np.moveaxis(x, -1, 0) / 255.0),
+                       np.float32) for x in (img, out))
+    got = butteraugli_diffmap(a, b, hf_asymmetry=0.8, device=dev).cpu()
+    want = butteraugli_diffmap(a, b, hf_asymmetry=0.8, device="cpu")
+    assert (got - want).abs().max() <= 1e-3 * want.max()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("gab,epf_iters", [(True, 1), (True, 3), (False, 2)])
+def test_scorer_filters_on_card_match_plain(gab, epf_iters, monkeypatch):
+    """The loop scorer's filtered image (Gaborish and EPF through the hand
+    kernels on the card) within 1e-5 of ``filters_torch.restore``'s plain
+    path on the CPU."""
+    from libjxl_torch.models.vardct_loop import state_lf
+    from libjxl_torch.render import filters_torch as FT
+    from libjxl_torch.vardct.enc_roundtrip import score
+    dev = _card()
+    h, w = 270, 481
+    rng = np.random.default_rng(epf_iters)
+    xyb = ((rng.random((3, h, w)) - 0.4) * 0.3).astype(np.float32)
+    orig = rng.random((3, h, w)).astype(np.float32)
+    rq = rng.integers(1, 40, (-(-h // 8), -(-w // 8))).astype(np.int32)
+    sharp = np.full(rq.shape, 4, np.int32)
+    lf = state_lf(dict(gab=gab, epf_iters=epf_iters))
+    seen = []
+    restore = FT.restore
+
+    def spy(*a, **k):
+        seen.append(restore(*a, **k))
+        return seen[-1]
+
+    monkeypatch.setattr(FT, "restore", spy)
+    t = (lambda a, d: torch.from_numpy(a).to(d))
+    score(t(xyb, dev), t(orig, dev), t(rq, dev), t(sharp, dev), 0.7,
+          FT.lf_params(lf, dev), gab, epf_iters, h, w)
+    want = restore(t(xyb, "cpu"), t(rq, "cpu"), t(sharp, "cpu"), 0.7,
+                   FT.lf_params(lf, "cpu"), gab, epf_iters)
+    assert seen[0].is_cuda
+    assert (seen[0].cpu() - want).abs().max() <= 1e-5
+
+
+@pytest.mark.gpu
+def test_e7_encode_on_card_meets_gate():
+    """The effort-7 device encode (front end, grids, transform and the
+    butteraugli loop on the card) of a 256x320 photo equals the same
+    program's stream on the CPU or meets the fallback gate."""
+    from _torch_e7 import equal_or_gate, photo
+    from libjxl_torch.vardct.frame_enc import LossyOptions, encode_lossy
+    dev = _card()
+    img = photo(256, 320, 9)
+    opts = LossyOptions(distance=1.0, effort=7, use_device=True)
+    equal_or_gate(img, encode_lossy(img, opts, device=dev),
+                  encode_lossy(img, opts, device="cpu"))

@@ -28,7 +28,8 @@ color/cms color/icc color/icc_profile color/xyb
 core/fields core/frame_header core/geometry core/headers core/toc
 entropy/alias entropy/ans entropy/histogram entropy/hybrid
 entropy/permutation entropy/prefix extras/exif
-modular/codec modular/enc_ma modular/fixed_trees modular/frame
+metrics/__init__ metrics/_malta_kernels modular/codec modular/enc_ma
+modular/fixed_trees modular/frame
 modular/image modular/predict modular/transforms modular/tree
 parallel/runner render/blending render/enc_dots render/enc_downsample
 render/enc_noise render/enc_patches render/noise render/patches
@@ -70,25 +71,30 @@ EDITED = {
     "parallel/host_pool": ({"_worker_init", "_decode_inputs_task",
                             "get_pool", "_warm_task", "warm",
                             "map_decode_inputs"}, {"default_workers"}),
-    # the e<=4 device branch calls the port's device program on
-    # ``device``; effort >= 7 and the effort >= 5 device front end raise
-    # NotImplementedError (ROADMAP A5), so the iterated encode and the
-    # EPF sharpness search are left out; encode_lossy_many runs the
-    # port's batch program
+    # the device branches call the port's device programs on
+    # ``device``, which the iterated encode and the EPF sharpness search
+    # pass on to their scorers (and the legacy loop to decode());
+    # encode_lossy_many runs the port's batch program at effort <= 4 and
+    # each image's whole encode once on its threads at effort >= 5
     "vardct/frame_enc": ({"LossyOptions", "encode_lossy",
-                          "encode_lossy_many"},
-                         {"_encode_lossy_iterated",
+                          "encode_lossy_many", "_encode_lossy_iterated",
                           "_encode_lossy_iterated_legacy",
                           "_epf_sharpness_search",
-                          "_epf_sharpness_search_state"}),
+                          "_epf_sharpness_search_state"}, set()),
+    # the jitted scorers are plain torch functions (score, epf_errs) on
+    # the entry points' ``device``
+    "vardct/enc_roundtrip": ({"roundtrip_block_sums", "epf_candidate_errs"},
+                             {"_score_jit", "_epf_err_jit"}),
     # DequantMatrices.decode records whether the stream signalled the
     # default AC tables (the reference never clears encodings_default)
     "vardct/quant_weights": ({"DequantMatrices"}, set()),
 }
 
 # the port's own modules that mirror a reference module's name
-PORTED = {"__init__", "models/lossless", "models/pack_kernel",
-          "models/vardct_decode", "models/vardct_pipeline",
+PORTED = {"__init__", "metrics/butteraugli", "models/lossless",
+          "models/pack_kernel", "models/vardct_decode",
+          "models/vardct_heuristics", "models/vardct_loop",
+          "models/vardct_pipeline", "models/vardct_transform",
           "ops/modular_ops"}
 
 
@@ -128,7 +134,8 @@ def test_every_shared_module_name_is_accounted_for():
                 if os.path.exists(os.path.join(REF, rel + ".py")) and \
                         not rel.endswith("/__init__"):
                     shared.add(rel)
-    assert shared == set(VERBATIM) | set(EDITED) | PORTED
+    listed = set(VERBATIM) | set(EDITED) | PORTED
+    assert shared == {m for m in listed if not m.endswith("/__init__")}
 
 
 def _imports(path: str) -> set:
@@ -147,6 +154,10 @@ def test_no_jax_or_reference_imports():
     files = [os.path.join(REPO, "chip_smoke.py")]
     for root, _, fs in os.walk(PORT):
         files += [os.path.join(root, f) for f in fs if f.endswith(".py")]
+    rel = {os.path.relpath(f, PORT)[:-3].replace(os.sep, "/") for f in files}
+    assert {"metrics/butteraugli", "models/vardct_heuristics",
+            "models/vardct_transform", "models/vardct_loop",
+            "vardct/enc_roundtrip"} <= rel
     for path in files:
         bad = {m for m in _imports(path)
                if m.split(".")[0] in ("jax", "jaxlib", "libjxl_tpu")}

@@ -11,7 +11,9 @@
   stream;
 * ``encode_lossy_many`` on the device gives the per-image streams, for
   one shape (one program a chunk of 4) and for mixed shapes;
-* the paths that wait for ROADMAP A5 raise ``NotImplementedError``;
+* the paths that waited for ROADMAP A5 (effort >= 7, the device path at
+  effort >= 5) now encode (their parity tests are
+  ``test_torch_vardct_e7*.py``);
 * the device program's sRGB curve equals the JAX package's float32 one
   on all 256 values, and its cube root is correctly rounded where
   float32 ``pow(x, 1/3)`` is not.
@@ -117,9 +119,13 @@ def test_encode_lossy_many_host_path():
                                                (9, False), (5, True),
                                                (6, True)])
 def test_a5_paths_raise(effort, use_device):
-    with pytest.raises(NotImplementedError, match="A5"):
-        port.encode_lossy(_noise(24, 32), port.LossyOptions(
-            effort=effort, use_device=use_device), device="cpu")
+    """The paths that raised NotImplementedError before A5 was ported
+    give a stream of the image's shape."""
+    from libjxl_torch.api.decoder import decode
+    img = _noise(24, 32)
+    data = port.encode_lossy(img, port.LossyOptions(
+        effort=effort, use_device=use_device), device="cpu")
+    assert decode(data).shape == img.shape
 
 
 def test_device_payload_is_exact():
