@@ -6,8 +6,7 @@ Drives the port's two main paths through their entry points:
   encode_lossless_many(imgs, EncodeOptions(use_device=True,
   entropy="prefix-device"))`` on 8 RGB 3840x2160 photos plus a 16-bit
   RGBA image, a ragged gray image and a smooth/noise pair, then decodes
-  the streams of photos 0 and 1 and of every other image on the host
-  and requires exact pixels;
+  every stream on the host and requires exact pixels;
 * the VarDCT serving decode ``libjxl_torch.api.decoder.decode_many`` on
   two batches: the DCT8 one, 8 3840x2160 streams cycled from the
   committed 4K fixtures (``tests/data/torch_vardct``) plus a ragged and
@@ -718,8 +717,8 @@ def psnr(a: np.ndarray, b: np.ndarray) -> float:
 
 def _quantized(img, opts, dev) -> tuple:
     """The quantized AC (DC slot zeroed), DC and CfL maps that
-    ``encode_lossy`` codes for ``img`` with ``opts``; the host encoder's
-    float64 DCT coefficients (None on the device path), the DC steps and
+    ``encode_lossy`` codes for ``img`` with ``opts``; the encoder's aux
+    (the host encoder's float64 padded XYB and 8x8 DCT), the DC steps and
     the encoder's state."""
     import copy
 
@@ -732,8 +731,7 @@ def _quantized(img, opts, dev) -> tuple:
     q_ac[..., 0] = 0
     return ([q_ac] + [np.asarray(st[k], np.int64)
                       for k in ("q_dc", "ytox", "ytob")],
-            o._aux.get("stored_dct"),
-            st["quantizer"].mul_dc(st["matrices"].dc_quant), st)
+            o._aux, st["quantizer"].mul_dc(st["matrices"].dc_quant), st)
 
 
 def _dc_before_rounding(stored, mul_dc) -> np.ndarray:
@@ -755,57 +753,65 @@ def _boundary_dist(v, th=None):
     return dist if th is None else np.minimum(dist, np.abs(a - th))
 
 
-def _dct8_thresholds(t0: float, t_rest: float) -> np.ndarray:
-    """The e<=4 encode's dead-zone thresholds (stored layout)."""
-    th = np.full((8, 8), t_rest)
-    th[:4, :4] = t0
-    th[0, 0] = 0.0
-    return th.reshape(64)
+def _float64_before_rounding(xyb64, acs, anchors, rq, matrices, quant,
+                             x_qm_mul: float, ytox, ytob, blocks,
+                             tiles) -> tuple:
+    """The host encoder's own float64 values before rounding, on the
+    padded XYB ``xyb64``: for each anchor (by, bx) in ``blocks``, the
+    quantized values' (3, size) inputs (Y from ``transform_all``'s
+    coefficients, X and B its residuals against the CfL maps ``ytox`` and
+    ``ytob`` as ``finish_chroma`` forms them) and their (3, size)
+    dead-zone thresholds; for each 64x64 tile (ty, tx) in ``tiles``, the
+    least-squares CfL ratios (x, b) before rounding, from the whole-frame
+    8x8 DCT as the encoder computes them."""
+    from libjxl_torch.vardct.enc_acs import _thresholds, transform_all
+    yb, xb = acs.shape
+    cs = 1.0 / 84.0
 
+    def run(acs_, keep):
+        cc = {}
+        blk, _ = transform_all(xyb64, acs_, keep, rq, matrices, quant,
+                               x_qm_mul, coef_cache=cc)
+        return blk, cc
 
-def _dct8_float64(stored64, st) -> dict:
-    """In float64, from an 8x8 DCT ``stored64`` (yb, xb, 3, 64) and the
-    encoder state ``st`` (its quantizer, raw quant field, x_qm_scale and
-    CfL maps): the AC values before rounding (``v``, (yb, xb, 3, 64), X
-    and B against ``st``'s CfL maps) with their thresholds (``th``,
-    (3, 64)), and the per-64x64-tile CfL ratios before rounding (``rx``,
-    ``rb``), as the encoder computes them."""
-    from libjxl_torch.vardct.frame_dec import adjust_quant_bias
-    quant = st["quantizer"]
-    rq = np.asarray(st["raw_quant"], np.float64)
-    yb, xb = rq.shape
-    table = st["matrices"].tables[0].reshape(3, 64).astype(np.float64)
-    inv = 1.0 / table
-    qac = quant.scale * rq
-    x_qm_mul = 1.25 ** (st["x_qm_scale"] - 2)
-    th_y, th_xb = _dct8_thresholds(0.56, 0.62), _dct8_thresholds(0.58, 0.62)
-    vy = stored64[:, :, 1] * (inv[1] * qac[:, :, None])
-    q_y = np.where(np.abs(vy) >= th_y, np.rint(vy), 0.0)
-    y_rt = adjust_quant_bias(q_y.reshape(-1, 64), 1).reshape(yb, xb, 64) * \
-        (table[1] * (quant.inv_global_scale / rq)[:, :, None])
-    ty, tx, cs = -(-yb // 8), -(-xb // 8), 1.0 / 84.0
-
-    def tiles(a):
-        ap = np.zeros((ty * 8, tx * 8, a.shape[2]))
-        ap[:yb, :xb] = a
-        return ap.reshape(ty, 8, tx, 8, -1).transpose(0, 2, 1, 3, 4).reshape(
-            ty, tx, -1)
-
-    yt = tiles(y_rt[:, :, 1:])
-    denom = np.einsum("ijk,ijk->ij", yt, yt)
-    dsafe = np.where(denom >= 1e-9, denom, 1.0)
-    rx = np.einsum("ijk,ijk->ij", tiles(stored64[:, :, 0, 1:]), yt) / \
-        dsafe / cs
-    rb = (np.einsum("ijk,ijk->ij", tiles(stored64[:, :, 2, 1:]), yt) /
-          dsafe - 1.0) / cs
-    fx = np.repeat(np.repeat(st["ytox"], 8, 0), 8, 1)[:yb, :xb] * cs
-    fb = 1.0 + np.repeat(np.repeat(st["ytob"], 8, 0), 8, 1)[:yb, :xb] * cs
-    vx = (stored64[:, :, 0] - fx[:, :, None] * y_rt) * \
-        (inv[0] * (qac * x_qm_mul)[:, :, None])
-    vb = (stored64[:, :, 2] - fb[:, :, None] * y_rt) * \
-        (inv[2] * qac[:, :, None])
-    return dict(v=np.stack([vx, vy, vb], 2), th=np.stack([th_xb, th_y, th_xb]),
-                rx=rx, rb=rb)
+    keep = np.zeros((yb, xb), bool)
+    for by, bx in blocks:
+        keep[by, bx] = True
+    blk, cc = run(acs, anchors & keep)
+    values = {}
+    for s in (k for k in cc if isinstance(k, int)):
+        by0, bx0 = np.nonzero(anchors & keep & (acs == s))
+        for i, (by, bx) in enumerate(zip(by0, bx0)):
+            b = blk[(by, bx)]
+            qac = quant.scale * b["qf"]
+            fx = ytox[by // 8, bx // 8] * cs
+            fb = 1.0 + ytob[by // 8, bx // 8] * cs
+            v = np.stack([
+                (b["stored_x"] - fx * b["y_rt"]) * (b["inv_table"][0] *
+                                                    (qac * x_qm_mul)),
+                cc[s][1][i] * (b["inv_table"][1] * qac),
+                (b["stored_b"] - fb * b["y_rt"]) * (b["inv_table"][2] *
+                                                    qac)])
+            th = np.stack([b["th_xb"], _thresholds(b["nby"], b["nbx"], True),
+                           b["th_xb"]])
+            values[(int(by), int(bx))] = (v, th)
+    keep8 = np.zeros((yb, xb), bool)
+    for ty, tx in tiles:
+        keep8[ty * 8:ty * 8 + 8, tx * 8:tx * 8 + 8] = True
+    blk8, _ = run(np.zeros_like(acs), keep8)
+    y_rt, sx, sb = (np.zeros((yb, xb, 63)) for _ in range(3))
+    for (by, bx), b in blk8.items():
+        y_rt[by, bx], sx[by, bx], sb[by, bx] = (
+            b["y_rt"][1:], b["stored_x"][1:], b["stored_b"][1:])
+    ratios = {}
+    for ty, tx in tiles:
+        sl = (slice(ty * 8, ty * 8 + 8), slice(tx * 8, tx * 8 + 8))
+        yt = y_rt[sl].reshape(-1)
+        den = float(yt @ yt)
+        ratios[(ty, tx)] = ((sx[sl].reshape(-1) @ yt / den / cs,
+                             (sb[sl].reshape(-1) @ yt / den - 1.0) / cs)
+                            if den >= 1e-9 else (0.0, 0.0))
+    return values, ratios
 
 
 def _explain(label: str, where, dist, follows, why: str) -> None:
@@ -823,6 +829,46 @@ def _explain(label: str, where, dist, follows, why: str) -> None:
                if not f and d > tol][:3]
         raise AssertionError(f"{label} values differ away from a rounding "
                              f"boundary, e.g. at {bad}")
+
+
+def _explain_quantized(label: str, xyb64, state: tuple, pairs: dict,
+                       cfl: tuple) -> None:
+    """Explain, with ``_explain``, each quantized AC value and CfL factor
+    where one encode (got) differs from another (want): ``pairs`` maps
+    each anchor (by, bx) where they differ to its (got, want) (3, size)
+    values; ``cfl`` is ((ytox got, want), (ytob got, want)); ``state`` is
+    (acs, anchors, raw quant, matrices, quantizer, x_qm_mul) of the
+    encode. A value is explained by its float64 value before rounding
+    (``_float64_before_rounding`` on ``xyb64``, against want's CfL maps)
+    within E7_TOL["boundary"] of a .5 or dead-zone boundary, or, for X
+    and B, by its Y value or its tile's CfL factor differing; a CfL
+    factor by its float64 ratio on a .5 boundary, or a Y value of its
+    tile differing."""
+    (x_got, x_want), (b_got, b_want) = cfl
+    diff_x, diff_b = x_got != x_want, b_got != b_want
+    tiles = {tuple(int(i) for i in t)
+             for t in np.argwhere(diff_x | diff_b)}
+    values, ratios = _float64_before_rounding(
+        xyb64, *state, ytox=x_want, ytob=b_want, blocks=pairs, tiles=tiles)
+    y_tiles = {(by // 8, bx // 8) for (by, bx), (a, b) in pairs.items()
+               if (a[1] != b[1]).any()}
+    for m, (key, diff) in enumerate((("ytox", diff_x), ("ytob", diff_b))):
+        where = [tuple(int(i) for i in t) for t in np.argwhere(diff)]
+        _explain(f"{label}{key}", where,
+                 [float(_boundary_dist(ratios[t][m])) for t in where],
+                 [t in y_tiles for t in where],
+                 "of tiles where a Y value differs")
+    where, dist, follows = [], [], []
+    for (by, bx), (a, b) in pairs.items():
+        v, th = values[(by, bx)]
+        for c, k in np.argwhere(a != b):
+            where.append((by, bx, int(c), int(k)))
+            dist.append(float(_boundary_dist(v[c, k], th[c, k])))
+            follows.append(c != 1 and bool(
+                a[1, k] != b[1, k] or
+                (diff_x if c == 0 else diff_b)[by // 8, bx // 8]))
+    _explain(f"{label}AC", where, dist, follows,
+             "X or B values whose Y or tile CfL factor differs")
 
 
 def encode_drift(dev, name: str, img, opts, got: bytes) -> None:
@@ -890,7 +936,7 @@ def encode_drift(dev, name: str, img, opts, got: bytes) -> None:
               f"encoder's ({len(got)} bytes)", flush=True)
         return
     q_dev = _quantized(img, opts, dev)[0]
-    q_host, stored64, mul64, st = _quantized(img, host_opts, None)
+    q_host, aux64, mul64, st = _quantized(img, host_opts, None)
     diffs = [np.abs(a - b) for a, b in zip(q_dev, q_host)]
     ratio = len(got) / len(want)
     print(f"lossy encode {name}: the device stream differs from the host "
@@ -902,7 +948,8 @@ def encode_drift(dev, name: str, img, opts, got: bytes) -> None:
     # the card's where no XYB sample differs), and the host's float64
     dc32 = _dc_before_rounding(dct[dev][0].numpy(),
                                np.asarray(sc[5], np.float32))
-    dc64 = _dc_before_rounding(stored64, np.asarray(mul64, np.float64))
+    dc64 = _dc_before_rounding(aux64["stored_dct"],
+                               np.asarray(mul64, np.float64))
     # each DC that differs either has its float64 value next to a .5
     # boundary or is a B value whose block's Y differs (B is coded less
     # the dequantized Y)
@@ -916,27 +963,17 @@ def encode_drift(dev, name: str, img, opts, got: bytes) -> None:
               f"{float(dc32[by, bx, c])!r}, host "
               f"{int(q_host[1][by, bx, c])} from float64 "
               f"{float(dc64[by, bx, c])!r}", flush=True)
-    # each AC value that differs: its float64 value next to a .5 boundary
-    # or the dead-zone threshold, or an X or B value that follows its Y
-    # (through the round trip) or its tile's CfL factor
-    f64 = _dct8_float64(stored64, st)
-    where = [tuple(i) for i in np.argwhere(diffs[0] > 0)]
-    _explain("AC", where,
-             [float(_boundary_dist(f64["v"][i], f64["th"][i[2], i[3]]))
-              for i in where],
-             [c != 1 and bool(diffs[0][by, bx, 1, k] > 0 or
-                              diffs[2 if c == 0 else 3][by // 8, bx // 8])
-              for by, bx, c, k in where],
-             "X or B values whose Y or tile CfL factor differs")
-    # each CfL factor that differs: its float64 least-squares ratio next
-    # to a .5 boundary, or a Y value of its tile differs
-    for m, key in ((2, "rx"), (3, "rb")):
-        where = [tuple(i) for i in np.argwhere(diffs[m] > 0)]
-        _explain(("ytox", "ytob")[m - 2], where,
-                 [float(_boundary_dist(f64[key][i])) for i in where],
-                 [bool(diffs[0][ty * 8:ty * 8 + 8, tx * 8:tx * 8 + 8, 1,
-                                1:].any()) for ty, tx in where],
-                 "of tiles where a Y value differs")
+    # each AC value and CfL factor that differs: its float64 value next
+    # to a rounding boundary, or one that follows such a value
+    yb, xb = st["raw_quant"].shape
+    pairs = {(int(by), int(bx)): (q_dev[0][by, bx], q_host[0][by, bx])
+             for by, bx in {(i[0], i[1]) for i in np.argwhere(diffs[0])}}
+    _explain_quantized(
+        "", aux64["xyb_cache"][0],
+        (np.zeros((yb, xb), np.int32), np.ones((yb, xb), bool),
+         st["raw_quant"], st["matrices"], st["quantizer"],
+         1.25 ** (st["x_qm_scale"] - 2)),
+        pairs, ((q_dev[2], q_host[2]), (q_dev[3], q_host[3])))
     if max(int(d.max()) for d in diffs) > 1 or abs(ratio - 1) > 0.01:
         raise AssertionError(f"lossy encode {name}: device and host "
                              "streams drift too far apart")
@@ -1108,76 +1145,19 @@ def _first_pass_on_card(dev, img, d: float, effort: int) -> tuple:
 
 def _explain_transform(card: dict, cpu: dict, args: tuple) -> None:
     """Explain each quantized coefficient and CfL factor where the card's
-    transform differs from the CPU's, from float64 values before
-    rounding on the card's input (``_explain``)."""
-    from libjxl_torch.vardct.enc_acs import _thresholds, transform_all
-    from libjxl_torch.vardct.frame_dec import adjust_quant_bias
-
-    xyb_d, acs, anchors, rq, matrices, quant, x_qm_mul = args
-    qd = {k: v["q"] for k, v in card["blocks_q"].items()}
-    qc = {k: v["q"] for k, v in cpu["blocks_q"].items()}
-    diff_x = card["ytox"] != cpu["ytox"]
-    diff_b = card["ytob"] != cpu["ytob"]
-    n_q = sum(int((qd[k] != qc[k]).sum()) for k in qd)
-    if not n_q and not diff_x.any() and not diff_b.any():
+    transform differs from the CPU's (``_explain_quantized`` on the
+    transform's inputs ``args``)."""
+    pairs = {k: (v["q"], cpu["blocks_q"][k]["q"])
+             for k, v in card["blocks_q"].items()
+             if (v["q"] != cpu["blocks_q"][k]["q"]).any()}
+    if not pairs and np.array_equal(card["ytox"], cpu["ytox"]) and \
+            np.array_equal(card["ytob"], cpu["ytob"]):
         return
-    xyb64 = xyb_d.cpu().numpy().astype(np.float64)
-    yb, xb = acs.shape
-    # CfL factors: the whole-frame 8x8 DCT's least squares in float64
-    from libjxl_torch.vardct.dct import dct_matrix
-    m8 = dct_matrix(8)
-    blocks = xyb64.reshape(3, yb, 8, xb, 8).transpose(1, 3, 0, 2, 4)
-    stored8 = ((m8 @ blocks) @ m8.T).transpose(0, 1, 2, 4, 3).reshape(
-        yb, xb, 3, 64)
-    f64 = _dct8_float64(stored8, dict(
-        quantizer=quant, raw_quant=rq, matrices=matrices, x_qm_scale=2,
-        ytox=card["ytox"], ytob=card["ytob"]))
-    y_tiles = np.zeros((-(-yb // 8), -(-xb // 8)), bool)
-    for (by, bx), q in qd.items():
-        if (q[1] != qc[(by, bx)][1]).any():
-            y_tiles[by // 8, bx // 8] = True
-    for label, diff, key in (("ytox", diff_x, "rx"), ("ytob", diff_b, "rb")):
-        where = [tuple(i) for i in np.argwhere(diff)]
-        _explain(f"transform {label}", where,
-                 [float(_boundary_dist(f64[key][i])) for i in where],
-                 [bool(y_tiles[i]) for i in where],
-                 "of tiles where a Y value differs")
-    # coefficients: float64 values of each class, as transform_all and
-    # finish_chroma compute them against the card's CfL maps
-    cc = {}
-    transform_all(xyb64, acs, anchors, rq, matrices, quant, x_qm_mul,
-                  coef_cache=cc)
-    where, dist, follows = [], [], []
-    for s in sorted(k for k in cc if isinstance(k, int)):
-        by0, bx0 = np.nonzero(anchors & (acs == s))
-        from libjxl_torch.vardct.ac_strategy import COVERED_X, COVERED_Y
-        nby, nbx = COVERED_Y[s], COVERED_X[s]
-        tab = matrices.table_for_strategy(s).reshape(3, -1)
-        inv = 1.0 / tab
-        qf = rq[by0, bx0].astype(np.float64)
-        qac = quant.scale * qf
-        th = [_thresholds(nby, nbx, False), _thresholds(nby, nbx, True),
-              _thresholds(nby, nbx, False)]
-        vy = cc[s][1] * (inv[1][None] * qac[:, None])
-        q_y = np.where(np.abs(vy) >= th[1], np.rint(vy), 0.0)
-        y_rt = adjust_quant_bias(q_y, 1) * tab[1] * \
-            (quant.inv_global_scale / qf)[:, None]
-        cs = 1.0 / 84.0
-        fx = card["ytox"][by0 // 8, bx0 // 8] * cs
-        fb = 1.0 + card["ytob"][by0 // 8, bx0 // 8] * cs
-        v = [(cc[s][0] - fx[:, None] * y_rt) * (inv[0] * (qac * x_qm_mul)[
-            :, None]), vy, (cc[s][2] - fb[:, None] * y_rt) * (
-            inv[2] * qac[:, None])]
-        for i, (by, bx) in enumerate(zip(by0, bx0)):
-            a, b = qd[(by, bx)], qc[(by, bx)]
-            for c, k in np.argwhere(a != b):
-                where.append((int(by), int(bx), int(c), int(k)))
-                dist.append(float(_boundary_dist(v[c][i, k], th[c][k])))
-                follows.append(c != 1 and bool(
-                    a[1, k] != b[1, k] or
-                    (diff_x if c == 0 else diff_b)[by // 8, bx // 8]))
-    _explain("transform coefficient", where, dist, follows,
-             "X or B values whose Y or tile CfL factor differs")
+    xyb_d, *state = args
+    _explain_quantized("transform ", xyb_d.cpu().numpy().astype(np.float64),
+                       tuple(state), pairs,
+                       ((card["ytox"], cpu["ytox"]),
+                        (card["ytob"], cpu["ytob"])))
 
 
 def e7_first_pass_check(dev, card: str, name: str, img, d: float,
@@ -1626,11 +1606,8 @@ def main() -> None:
     host_pool.shutdown()
     done("the effort 5-7 lossy encode")
 
-    # 8. decode the lossless streams on the host: photos 0 and 1 (the 8
-    # photos are alike; each repeated encode above equals the first) and
-    # every other image
-    jobs = ([(n, s, im) for n, s, im in zip(names, streams, batch)
-             if n not in names[2:len(photos)]]
+    # 8. decode every lossless stream on the host
+    jobs = ([(n, s, im) for n, s, im in zip(names, streams, batch)]
             + [("rgba16 two-pass", two_pass, extras["rgba16"]),
                ("gray ans", ans, extras["gray"])])
     phase_decode(jobs)

@@ -1,8 +1,10 @@
 """Shared pieces of the port's effort 5-7 encode tests: the test image of
-``tests/test_vardct_encoder.py``, and the fallback gate that a stream
-which is not byte-equal to the JAX package's must meet. Imports no JAX,
-so the card tests use it too."""
+``tests/test_vardct_encoder.py``, the fallback gate that a stream which
+is not byte-equal to the JAX package's must meet, and a fixture that
+runs a module's torch work on one thread. Imports no JAX, so the card
+tests use it too."""
 import numpy as np
+import pytest
 
 
 def photo(h: int, w: int, seed: int) -> np.ndarray:
@@ -44,3 +46,15 @@ def equal_or_gate(img: np.ndarray, got: bytes, want: bytes) -> str:
     dg, dw = distance(img, got), distance(img, want)
     assert abs(dg - dw) <= 0.05, (dg, dw)
     return "gate"
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """Run the module's torch work on one thread: pytest-xdist runs one
+    test process per core, and torch's thread pool in each of them would
+    otherwise spin against the others'. Restores the count afterwards."""
+    import torch
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)

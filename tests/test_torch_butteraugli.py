@@ -15,6 +15,7 @@ import pytest
 torch = pytest.importorskip("torch")
 jax = pytest.importorskip("jax")
 
+from _torch_e7 import one_torch_thread  # noqa: E402,F401
 from libjxl_torch.metrics import butteraugli as port  # noqa: E402
 from libjxl_tpu.metrics import butteraugli as ref  # noqa: E402
 

@@ -3,9 +3,10 @@ whole streams, on the 120x168 image of ``tests/test_vardct_encoder.py``
 at distance 1 (Gaborish and one EPF pass):
 
 * the device path at effort 5, 6 and 7 and the host path at effort 7
-  give the JAX package's bytes, or, where float32 differences between
-  the libraries move a rounding step, a stream that meets the fallback
-  gate (``tests/_torch_e7.equal_or_gate``);
+  give the JAX package's bytes, but for the host path at effort 7, where
+  float32 differences between the libraries move a rounding step and
+  the stream meets the fallback gate instead
+  (``tests/_torch_e7.equal_or_gate``, ``EXPECT``);
 * the JAX suite's own device gates hold for the port, its host path the
   baseline: the device stream at most 1.08x the host stream, a
   butteraugli distance below 3.0, and ``config.device_transform`` on and
@@ -23,7 +24,9 @@ import pytest
 torch = pytest.importorskip("torch")
 jax = pytest.importorskip("jax")
 
-from _torch_e7 import distance, equal_or_gate, photo  # noqa: E402
+from _torch_e7 import (  # noqa: E402,F401
+    distance, equal_or_gate, one_torch_thread, photo,
+)
 from libjxl_torch.config import config  # noqa: E402
 from libjxl_torch.models import vardct_heuristics as TH  # noqa: E402
 from libjxl_torch.vardct import frame_enc as port  # noqa: E402
@@ -32,6 +35,16 @@ from libjxl_tpu.vardct import frame_enc as ref  # noqa: E402
 IMG = photo(120, 168, 1)
 D = 1.0
 CASES = [(5, True), (6, True), (7, False), (7, True)]
+# what each stream is against the JAX package's: "equal" bytes, or
+# "gate", where the fallback gate is allowed (equal bytes pass too)
+EXPECT = {
+    (5, True): "equal",
+    (6, True): "equal",
+    # first differing stage: the loop scorer's block sums (2.5e-05
+    # relative) move the loop's integer global scale one step
+    (7, False): "gate",
+    (7, True): "equal",
+}
 
 
 def _enc(mod, effort, use_device, device=None, img=IMG):
@@ -57,10 +70,8 @@ def test_stream_matches_jax_or_gate(effort, use_device, jax_streams,
                                     port_streams):
     got = port_streams[(effort, use_device)]
     want = jax_streams[(effort, use_device)]
-    equal_or_gate(IMG, got, want)
-    if effort < 7:
-        # no butteraugli loop: every stage is held equal
-        assert got == want
+    kind = equal_or_gate(IMG, got, want)
+    assert kind == "equal" or EXPECT[(effort, use_device)] == "gate"
 
 
 @pytest.mark.parametrize("effort", [5, 7])

@@ -5,11 +5,13 @@ effort-7 device encode of the 120x168 image at distance 1 (Gaborish, one
 EPF pass):
 
 * ``LoopState.block_sums(qf)``, for the first-pass field and a
-  perturbed one, within 1e-3 of the grid's max; its pre-filter
+  perturbed one, each block within 1e-3 relative; its pre-filter
   reconstruction within 1e-4;
-* ``epf_candidate_errs`` on the JAX package's reconstruction within 1e-4
-  of each grid's max, for both candidate sets and every EPF pass count;
-* the host path's scorer ``roundtrip_block_sums`` within 1e-3.
+* ``epf_candidate_errs`` on the JAX package's reconstruction, each block
+  within 1e-4 relative, for both candidate sets and every EPF pass
+  count;
+* the host path's scorer ``roundtrip_block_sums``, each block within
+  1e-3 relative.
 """
 import copy
 
@@ -19,7 +21,7 @@ import pytest
 torch = pytest.importorskip("torch")
 jax = pytest.importorskip("jax")
 
-from _torch_e7 import photo  # noqa: E402
+from _torch_e7 import one_torch_thread, photo  # noqa: E402,F401
 from libjxl_torch.models import vardct_loop as TL  # noqa: E402
 from libjxl_torch.vardct import enc_roundtrip as TR  # noqa: E402
 from libjxl_torch.vardct import frame_enc as port  # noqa: E402
@@ -83,7 +85,7 @@ def test_block_sums_match_jax(which, loop):
     want = loop["js"].block_sums(qf)
     got = loop["ts"].block_sums(qf)
     assert got.shape == want.shape == (-(-H // 8), -(-W // 8))
-    assert np.abs(got - want).max() <= 1e-3 * want.max()
+    assert (np.abs(got - want) <= 1e-3 * np.abs(want)).all()
 
 
 def test_recon_prefilter_matches_jax(loop):
@@ -106,8 +108,7 @@ def test_epf_candidate_errs_match_jax(steps, epf_iters, loop):
     got = TR.epf_candidate_errs(*args, TL.state_lf(state), loop["opsin"],
                                 steps, device="cpu")
     assert got.shape == want.shape == (len(steps), -(-H // 8), -(-W // 8))
-    for g, w in zip(got, want):
-        assert np.abs(g - w).max() <= 1e-4 * w.max()
+    assert (np.abs(got - want) <= 1e-4 * np.abs(want)).all()
 
 
 def test_host_scorer_matches_jax():
@@ -115,7 +116,7 @@ def test_host_scorer_matches_jax():
     tstate, _ = _first_pass(port, False)
     want = JR.roundtrip_block_sums(jstate, _orig_f32(), H, W)
     got = TR.roundtrip_block_sums(tstate, _orig_f32(), H, W, device="cpu")
-    assert np.abs(got - want).max() <= 1e-3 * want.max()
+    assert (np.abs(got - want) <= 1e-3 * np.abs(want)).all()
     # the loop state's device cache gives its host cache's sums
     state, aux = _first_pass(port, True)
     a = TL.LoopState(state, aux, _orig_f32(), D, 1.0, H, W, device="cpu")
