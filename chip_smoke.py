@@ -47,7 +47,15 @@ Drives the port's two main paths through their entry points:
   0's whole d1 e7 stream to the CPU's (equal, or the fallback gate), and
   every stream through ``decode_many`` on the card within +-1 of the
   host decode and beyond the PSNR and butteraugli values the CPU's
-  encode reaches.
+  encode reaches;
+* the command-line tools (``libjxl_torch.cli``) through ``main(argv)``
+  at 4K on PNM files (``phase_cli``): ``cjxl --device`` at d1 e7, d1 e3
+  and d0 giving the lossy phases' streams and an exact lossless one,
+  ``djxl`` of the 4K fixtures giving ``decode()``'s output with its
+  launches, ``params.compress`` and ``benchmark_xl`` through the pack
+  kernel, the committed JPEGs recompressed and given back byte for byte,
+  and ``python -m`` processes of the tools that build nothing and give
+  the in-process files.
 
 Phases: environment, build (nvcc for sm_90a, one process per kernel
 source, all at once, + the native host library), the pack kernel and the
@@ -65,7 +73,8 @@ the host half's time, a ``torch.profiler`` run, its streams against the
 CPU's and the host encoder's, the round trip through ``decode_many``),
 the effort 5-7 encode (the filter launches, the batch rate, the ``prof``
 stages, the device stages' CUDA-event times, a ``torch.profiler`` run,
-the checks above), the host decode of the lossless streams, and a check
+the checks above), the command-line tools (each tool's wall ms and
+launches), the host decode of the lossless streams, and a check
 that neither JAX nor the JAX package was imported. The later phases
 print how far into the run they ended. The last two lines are the kernels' JSON
 record and ``{"ok": true, "device": ...}``. Any failure raises and exits
@@ -102,6 +111,8 @@ GAB_REPLACES = "libjxl_tpu/models/pallas_filters.py:72"
 EPF_REPLACES = "libjxl_tpu/models/pallas_filters.py:85"
 FIXTURES = os.path.join("tests", "data", "torch_vardct")
 VAR_FIXTURES = os.path.join("tests", "data", "torch_vardct_var")
+# the JPEGs the CLI phase recompresses (made with PIL elsewhere)
+JPEG_FIXTURES = os.path.join("tests", "data", "torch_cli")
 # the repo's pinned effort-7 stream, with its manifest entry
 E7_STREAM = os.path.join("profiling", "bench_e7_stream.jxl")
 E7_META = dict(h=768, w=1024, bits=8, gab=1, epf_iters=1, sha256=(
@@ -600,7 +611,7 @@ def _reset_filter_counts() -> None:
     epf_filter.pass_launches = [0, 0, 0]
 
 
-def phase_decode_api(dev, card: str) -> dict:
+def phase_decode_api(dev, card: str) -> tuple:
     """``decode()`` of a 4K DCT8 and a 4K variable-block fixture with its
     restoration filters on the card: with ``device_filters = True`` (one
     whole-frame launch of each filter the header asks for, the colour
@@ -608,11 +619,13 @@ def phase_decode_api(dev, card: str) -> dict:
     256-row band window), each run twice with the counts set to 0 before
     and read after; each output within +-1 of the float64 host filters,
     auto bit for bit equal to ``decode_rows`` on the card. Returns the
-    filter launches of the first run of each mode."""
+    filter launches of the first run of each mode, and by fixture name
+    the auto output with the launches of its first run."""
     from libjxl_torch.api.decoder import decode, decode_rows
     from libjxl_torch.config import config
 
     total = dict(gaborish=0, epf_passes=[0, 0, 0])
+    autos = {}
     try:
         for directory, name in DECODE_API:
             manifest, streams = load_fixtures(directory)
@@ -641,6 +654,8 @@ def phase_decode_api(dev, card: str) -> dict:
                             f"decode() {mode} of {name}: launches {got}, "
                             f"want {windows} x {per_frame}")
                     if rep == 0:
+                        if mode == "auto":
+                            autos[name] = got
                         total["gaborish"] += got[0]
                         total["epf_passes"] = [
                             a + b for a, b in zip(total["epf_passes"],
@@ -664,6 +679,7 @@ def phase_decode_api(dev, card: str) -> dict:
                                      "decode_rows on the card bit for bit")
             print(f"decode() auto of {name} equals decode_rows on the card "
                   "bit for bit", flush=True)
+            autos[name] = (outs["auto"], autos[name])
             print(f"decode() of {name} ({m['h']}x{m['w']}), ms a decode: "
                   f"host float64 filters {host_ms}; device filters "
                   f"resident {times['resident']}, auto (band windows) "
@@ -671,7 +687,7 @@ def phase_decode_api(dev, card: str) -> dict:
                   flush=True)
     finally:
         config.device_filters = None
-    return total
+    return total, autos
 
 
 def phase_host_routed(dev, card: str, photos: list, workers: int) -> None:
@@ -979,14 +995,14 @@ def encode_drift(dev, name: str, img, opts, got: bytes) -> None:
                              "streams drift too far apart")
 
 
-def phase_lossy_encode(dev, card: str, photos: list, workers: int) -> None:
+def phase_lossy_encode(dev, card: str, photos: list, workers: int) -> list:
     """The VarDCT lossy encode on the card: ``encode_lossy_many`` of the 8
     4K photos at distance 1, effort 3, and ``encode_lossy`` of a ragged
     image; the batch rate, the device program's time a 4K image, the
     host half's time and a profiled batch; every stream through
     ``encode_drift``; every stream through ``decode_many`` on
     the card, within +-1 of the float64 host decode and above the PSNR
-    floor."""
+    floor. Returns the streams (the photos', then the ragged image's)."""
     import copy
     import multiprocessing
     from concurrent.futures import ProcessPoolExecutor
@@ -1082,6 +1098,7 @@ def phase_lossy_encode(dev, card: str, photos: list, workers: int) -> None:
     if min(values) < PSNR_FLOOR:
         raise AssertionError(f"a lossy round trip is below the PSNR floor "
                              f"{PSNR_FLOOR}: {values}")
+    return streams
 
 
 def _e7_images(photos: list) -> dict:
@@ -1240,7 +1257,7 @@ def e7_first_pass_check(dev, card: str, name: str, img, d: float,
     return out
 
 
-def phase_lossy_e7(dev, card: str, photos: list, workers: int) -> dict:
+def phase_lossy_e7(dev, card: str, photos: list, workers: int) -> tuple:
     """The effort 5-7 VarDCT encode on the card (E7_JOBS): photos 0 and 1
     at d1 e7 through ``encode_lossy_many``, the others through
     ``encode_lossy``, the Gaborish/EPF launches of that run (returned for
@@ -1252,7 +1269,8 @@ def phase_lossy_e7(dev, card: str, photos: list, workers: int) -> dict:
     encode on the CPU (equal, or the fallback gate: the same ACS map,
     size within 1%, butteraugli within 0.05); every stream through
     ``decode_many`` on the card, within +-1 of the host decode, and
-    above its PSNR floor and below its butteraugli ceiling."""
+    above its PSNR floor and below its butteraugli ceiling. Returns the
+    launches and the streams by job name."""
     import multiprocessing
     from concurrent.futures import ProcessPoolExecutor
 
@@ -1408,7 +1426,317 @@ def phase_lossy_e7(dev, card: str, photos: list, workers: int) -> dict:
         if diff > 1 or p < E7_FLOORS[name][0] or dist > E7_FLOORS[name][1]:
             raise AssertionError(f"e7 phase {name}: round trip {quality[name]}"
                                  f" against {E7_FLOORS[name]}")
-    return counts
+    return counts, streams
+
+
+def _all_counts() -> dict:
+    from libjxl_torch.models.pack_kernel import pack_chunks
+    return dict(pack=pack_chunks.launches, **_filter_counts())
+
+
+def _launch_delta(before: dict, after: dict) -> list:
+    """[pack, Gaborish, EPF0, EPF1, EPF2] launches between two counts."""
+    a = [before["pack"], before["gaborish"]] + before["epf_passes"]
+    b = [after["pack"], after["gaborish"]] + after["epf_passes"]
+    return [y - x for x, y in zip(a, b)]
+
+
+def _no_nvcc_env(tmp: str) -> dict:
+    """This environment without LIBJXL_TORCH_DEVICE and with no nvcc to be
+    found (CUDA_HOME names an empty directory, PATH lists no directory
+    that holds nvcc): a kernel that had to be built would raise."""
+    env = {k: v for k, v in os.environ.items()
+           if k != "LIBJXL_TORCH_DEVICE"}
+    env["CUDA_HOME"] = os.path.join(tmp, "no_cuda")
+    env["PATH"] = os.pathsep.join(
+        d for d in env.get("PATH", "").split(os.pathsep)
+        if d and not os.path.exists(os.path.join(d, "nvcc")))
+    return env
+
+
+def _tool_proc(tool: str, argv: list, env: dict) -> subprocess.Popen:
+    return subprocess.Popen(
+        [sys.executable, "-m", f"libjxl_torch.cli.{tool}"] + argv,
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def _tool_done(name: str, proc: subprocess.Popen, t0: float,
+               timeout: float) -> tuple:
+    """(stdout, wall ms) of a tool's process; raises unless it exits 0."""
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        raise AssertionError(f"{name}: no exit in {timeout} s")
+    ms = (time.perf_counter() - t0) * 1e3
+    if proc.returncode != 0:
+        raise AssertionError(f"{name} exited {proc.returncode}:\n{err}")
+    return out, ms
+
+
+def _built() -> list:
+    from libjxl_torch.utils.cuda_build import BUILD_DIR
+    return sorted(os.listdir(BUILD_DIR))
+
+
+def stop_cli(pending: dict) -> None:
+    """Stop the CLI phase's 4K ``benchmark_xl`` process if it still runs,
+    and remove the phase's temporary directory."""
+    import shutil
+    proc = pending["proc"]
+    if proc is not None and proc.poll() is None:
+        proc.kill()
+        proc.communicate()
+    shutil.rmtree(pending["tmp"], ignore_errors=True)
+
+
+def finish_cli(pending: dict) -> None:
+    """Read the CLI phase's 4K ``benchmark_xl`` process: its table, its
+    bytes the e3 stream's, and no kernel built by any tool's process."""
+    out, ms = _tool_done("benchmark_xl 4K", pending["proc"], pending["t0"],
+                         600)
+    print(f"cli benchmark_xl, photo 0 at 3840x2160 (python -m, {ms} ms "
+          f"from its start in the CLI phase to its exit):\n{out}", end="",
+          flush=True)
+    row = out.splitlines()[2].split()
+    if row[0] != "jxl:d1:e3:device" or int(row[2]) != pending["e3_bytes"]:
+        raise AssertionError(f"benchmark_xl 4K row {row}: want the e3 "
+                             f"stream's {pending['e3_bytes']} bytes")
+    if _built() != pending["built"]:
+        raise AssertionError("a tool's process built a kernel")
+    print(f"cli python -m processes: no kernel built (no nvcc on their "
+          f"PATH, the build directory unchanged: {pending['built']})",
+          flush=True)
+
+
+def phase_cli(dev, card: str, photos: list, e3: list, e7: dict,
+              autos: dict) -> tuple:
+    """The command-line tools and the entry points behind them, at 4K on
+    the card, each through ``main(argv)`` in this process (launches
+    counted per tool) on files written here (PNM: the card machine has
+    no PIL):
+
+    * ``cjxl -d 1 -e 7 --device`` of photo 0 gives the e5-e7 phase's
+      stream (``e7``) with the launches its loop filter implies;
+      ``cjxl -d 1 -e 3 --device`` gives the e3 phase's (``e3``);
+      ``cjxl -d 0 --device`` (the ANS device path) decodes exactly;
+    * ``djxl`` of the 4K DCT8 and var fixtures gives ``decode()``'s auto
+      output (``autos``) with the same launches;
+    * ``params.compress`` with ``use_device=True`` gives
+      ``encode_lossless``'s prefix-device stream, through the pack kernel;
+    * ``benchmark_xl``: ``jxl:d0:e3:device`` on a 768x512 crop of photo 0
+      here (the pack kernel; the host decoder reads prefix streams in
+      Python) and ``jxl:d1:e3:device`` on photo 0 at 4K in a process of
+      its own, started first (its SSIMULACRA2 is numpy, about 100 s at
+      4K) and left running: ``finish_cli`` reads it after the next
+      phase, and requires the e3 stream's bytes and an unchanged build
+      directory;
+    * ``cjxl`` recompresses each committed JPEG and ``djxl`` gives it
+      back byte for byte;
+    * ``python -m`` processes of ``cjxl`` (the ragged image at d5 e7,
+      through the filter kernels) and ``djxl`` (the DCT8 fixture),
+      without LIBJXL_TORCH_DEVICE and with no nvcc to be found, give the
+      in-process files;
+    * ``graft_entry.entry()`` gives the CPU's outputs on the card.
+
+    Returns the launches of the phase's in-process runs, counted from 0,
+    and what ``finish_cli`` and ``stop_cli`` take: the running 4K
+    ``benchmark_xl`` process and the phase's temporary directory."""
+    import tempfile
+    from contextlib import redirect_stderr
+    from io import StringIO
+
+    from bench import make_image
+
+    from libjxl_torch.api.decoder import decode
+    from libjxl_torch.api.encoder import EncodeOptions, encode_lossless
+    from libjxl_torch.cli import benchmark_xl
+    from libjxl_torch.cli.cjxl import main as cjxl
+    from libjxl_torch.cli.djxl import main as djxl
+    from libjxl_torch.extras.io import load_image, save_image
+    from libjxl_torch.models.pack_kernel import pack_chunks
+    from libjxl_torch.params import CompressParams, compress
+
+    def read(path: str) -> bytes:
+        with open(path, "rb") as f:
+            return f.read()
+
+    wall = {}
+
+    def run(label: str, main, argv: list) -> list:
+        """main(argv) in this process; returns its launches."""
+        before = _all_counts()
+        t0 = time.perf_counter()
+        with redirect_stderr(StringIO()) as err:
+            rc = main(argv)
+        wall[label] = (time.perf_counter() - t0) * 1e3
+        if rc != 0:
+            raise AssertionError(f"{label} exited {rc}: {err.getvalue()}")
+        return _launch_delta(before, _all_counts())
+
+    def want_launches(label: str, got: list, want: list) -> None:
+        print(f"cli {label}: launches (pack, Gaborish, EPF0/1/2) {got}",
+              flush=True)
+        if got != want:
+            raise AssertionError(f"cli {label}: launches {got}, want {want}")
+
+    # the streams the tools are held to, made before the counts start
+    opts = EncodeOptions(use_device=True, entropy="prefix-device")
+    want_d0 = encode_lossless(photos[0], opts, device=dev)
+    want_crop = encode_lossless(photos[0][:512, :768], opts, device=dev)
+    pack_chunks.launches = 0
+    _reset_filter_counts()
+    pending = dict(tmp=tempfile.mkdtemp(), proc=None, e3_bytes=len(e3[0]))
+    tmp = pending["tmp"]
+    try:
+        def f(name: str) -> str:
+            return os.path.join(tmp, name)
+
+        ragged = make_image(RAGGED_SEED, 1001, 1503)
+        save_image(f("photo0.ppm"), photos[0])
+        save_image(f("ragged.ppm"), ragged)
+        save_image(f("crop.ppm"), photos[0][:512, :768])
+        pending["built"] = _built()
+        env = _no_nvcc_env(tmp)
+        pending["t0"] = time.perf_counter()
+        pending["proc"] = _tool_proc("benchmark_xl", [
+            f("photo0.ppm"), "--codec", "jxl:d1:e3:device"], env)
+
+        # cjxl at 4K on the card
+        got = run("cjxl -d 1 -e 7 --device", cjxl, [
+            f("photo0.ppm"), f("e7.jxl"), "-d", "1", "-e", "7", "--device"])
+        if read(f("e7.jxl")) != e7["photo0_d1_e7"]:
+            raise AssertionError("cjxl -d 1 -e 7 --device differs from the "
+                                 "e5-e7 phase's stream of photo 0")
+        want_launches("cjxl -d 1 -e 7 --device", got,
+                      [0] + _e7_launches(e7["photo0_d1_e7"], 1.0, 7))
+        got = run("cjxl -d 1 -e 3 --device", cjxl, [
+            f("photo0.ppm"), f("e3.jxl"), "-d", "1", "-e", "3", "--device"])
+        if read(f("e3.jxl")) != e3[0]:
+            raise AssertionError("cjxl -d 1 -e 3 --device differs from the "
+                                 "e3 phase's stream of photo 0")
+        want_launches("cjxl -d 1 -e 3 --device", got, [0] * 5)
+        got = run("cjxl -d 0 --device", cjxl, [
+            f("photo0.ppm"), f("d0.jxl"), "-d", "0", "--device"])
+        if not np.array_equal(decode(read(f("d0.jxl")), device=dev),
+                              photos[0]):
+            raise AssertionError("cjxl -d 0 --device does not decode "
+                                 "exactly")
+        want_launches("cjxl -d 0 --device", got, [0] * 5)
+        print(f"cli cjxl of photo 0: -d 1 -e 7 --device and -d 1 -e 3 "
+              f"--device give the e7 and e3 phases' streams; -d 0 --device "
+              f"({len(read(f('d0.jxl')))} bytes) decodes exactly", flush=True)
+
+        # djxl at 4K: decode() in auto mode, the band windows on the card
+        for directory, name in DECODE_API:
+            out, launches = autos[name]
+            got = run(f"djxl {name}", djxl, [
+                os.path.join(directory, name), f(name + ".ppm")])
+            if not np.array_equal(load_image(f(name + ".ppm")), out):
+                raise AssertionError(f"djxl of {name} differs from decode() "
+                                     "in auto mode")
+            want_launches(f"djxl {name}", got, [0] + launches)
+        print("cli djxl of the 4K DCT8 and var fixtures: decode()'s auto "
+              "output, with its launches", flush=True)
+
+        # params.compress: CompressParams(use_device=True) at distance 0
+        # takes the pack kernel's entropy path
+        before = _all_counts()
+        t0 = time.perf_counter()
+        data = compress(photos[0], CompressParams(distance=0.0,
+                                                  use_device=True))
+        wall["params.compress d0 use_device"] = (time.perf_counter()
+                                                 - t0) * 1e3
+        got = _launch_delta(before, _all_counts())
+        print(f"cli params.compress(CompressParams(distance=0, "
+              f"use_device=True)) of photo 0: {len(data)} bytes, launches "
+              f"{got}", flush=True)
+        if data != want_d0 or got[0] <= 0 or any(got[1:]):
+            raise AssertionError("params.compress differs from "
+                                 "encode_lossless prefix-device, or did not "
+                                 f"launch the pack kernel alone: {got}")
+
+        # benchmark_xl, lossless through the pack kernel, here
+        before = _all_counts()
+        t0 = time.perf_counter()
+        table = StringIO()
+        rows = benchmark_xl.run_benchmark(
+            [benchmark_xl._load(f("crop.ppm"))], ["jxl:d0:e3:device"],
+            out=table)
+        wall["benchmark_xl jxl:d0:e3:device 768x512"] = (
+            time.perf_counter() - t0) * 1e3
+        got = _launch_delta(before, _all_counts())
+        print(f"cli benchmark_xl, 768x512 crop of photo 0 (launches "
+              f"{got}):\n{table.getvalue()}", end="", flush=True)
+        if rows[0]["bytes"] != len(want_crop) or rows[0]["psnr"] != 99.99 or \
+                got[0] <= 0 or any(got[1:]):
+            raise AssertionError(f"benchmark_xl jxl:d0:e3:device: {rows}, "
+                                 f"launches {got}")
+
+        # JPEG recompression of the committed JPEGs
+        manifest, jpegs = load_fixtures(JPEG_FIXTURES)
+        sizes = {}
+        for name in sorted(manifest):
+            src = os.path.join(JPEG_FIXTURES, name)
+            run(f"cjxl {name}", cjxl, [src, f(name + ".jxl")])
+            run(f"djxl {name}", djxl, [f(name + ".jxl"), f(name)])
+            if read(f(name)) != jpegs[name]:
+                raise AssertionError(f"djxl does not give back {name}")
+            sizes[name] = (len(jpegs[name]), len(read(f(name + ".jxl"))))
+        print(f"cli JPEG recompression (JPEG bytes, JXL bytes): {sizes}; "
+              "each given back byte for byte", flush=True)
+
+        # python -m processes: no build, the in-process files
+        got = run("cjxl -d 5 -e 7 --device ragged", cjxl, [
+            f("ragged.ppm"), f("ragged.jxl"), "-d", "5", "-e", "7",
+            "--device"])
+        if read(f("ragged.jxl")) != e7["ragged_d5_e7"]:
+            raise AssertionError("cjxl of the ragged image at d5 e7 differs "
+                                 "from the e5-e7 phase's stream")
+        want_launches("cjxl -d 5 -e 7 --device ragged", got,
+                      [0] + _e7_launches(e7["ragged_d5_e7"], 5.0, 7))
+        name = DECODE_API[0][1]
+        procs = {}
+        for label, tool, argv, mine, theirs in (
+                ("cjxl -d 5 -e 7 --device ragged", "cjxl",
+                 [f("ragged.ppm"), f("ragged_p.jxl"), "-d", "5", "-e", "7",
+                  "--device"], f("ragged.jxl"), f("ragged_p.jxl")),
+                (f"djxl {name}", "djxl",
+                 [os.path.join(DECODE_API[0][0], name), f("p.ppm")],
+                 f(name + ".ppm"), f("p.ppm"))):
+            t0 = time.perf_counter()
+            _, ms = _tool_done(label, _tool_proc(tool, argv, env), t0, 300)
+            if read(mine) != read(theirs):
+                raise AssertionError(f"python -m {label} differs from the "
+                                     "in-process run")
+            procs[label] = ms
+        print(f"cli python -m processes (wall ms; the in-process run's; "
+              f"the difference, the process's start-up): "
+              f"{ {k: (v, wall[k], v - wall[k]) for k, v in procs.items()} }"
+              "; files equal to the in-process runs", flush=True)
+
+        # the graft entry's twin: the same program on the card and the CPU
+        from libjxl_torch.graft_entry import entry
+        outs = []
+        for where in (dev, "cpu"):
+            fn, args = entry(device=where)
+            outs.append([t.cpu() for t in fn(*args)])
+        diffs = [int((a.long() - b.long()).abs().max())
+                 for a, b in zip(*outs)]
+        print(f"graft_entry.entry() on the card against the CPU: max abs "
+              f"diff of q_ac, q_dc, payload, wide {diffs}", flush=True)
+        if any(diffs):
+            raise AssertionError("graft_entry.entry() differs on the card")
+        counts = _all_counts()
+        print(f"cli phase: launches (counted from 0) pack "
+              f"{counts['pack']}, Gaborish {counts['gaborish']}, EPF0/1/2 "
+              f"{counts['epf_passes']}; tool wall ms {wall}, on "
+              f"{card_line()}", flush=True)
+        return counts, pending
+    except BaseException:
+        stop_cli(pending)
+        raise
 
 
 def _leaves(frame):
@@ -1472,20 +1800,24 @@ def build_kernels(sources) -> None:
     print(f"kernels built in {time.perf_counter() - t0} s", flush=True)
 
 
-def filter_records(filters: dict, counts: dict) -> list:
+def filter_records(filters: dict, by_path: dict) -> list:
     """The kernels-line records of Gaborish and of each EPF pass, with the
-    launches of the main paths' runs (``counts``: the decode batches,
-    ``decode()`` and the effort 5-7 encode; None where they were not
-    driven)."""
-    recs = [dict(name="gaborish", route="cuda", source=FILTERS_SOURCE,
-                 replaces=GAB_REPLACES, launches=counts.get("gaborish"),
-                 **filters["gab"])]
-    for p in (0, 1, 2):
-        launches = counts["epf_passes"][p] if counts else None
-        recs.append(dict(name=f"epf{p}", route="cuda", source=FILTERS_SOURCE,
-                         replaces=EPF_REPLACES, launches=launches,
-                         **filters[p]))
-    return recs
+    launches of the main paths' runs (``by_path``: path name -> counts of
+    its run, the decode batches, ``decode()``, the effort 5-7 encode and
+    the command-line tools), in all and by path; None where no path was
+    driven."""
+    def rec(name, replaces, count, timing):
+        paths = {k: count(c) for k, c in by_path.items()}
+        return dict(name=name, route="cuda", source=FILTERS_SOURCE,
+                    replaces=replaces,
+                    launches=sum(paths.values()) if paths else None,
+                    paths=paths, **timing)
+
+    return ([rec("gaborish", GAB_REPLACES, lambda c: c["gaborish"],
+                 filters["gab"])]
+            + [rec(f"epf{p}", EPF_REPLACES,
+                   lambda c, p=p: c["epf_passes"][p], filters[p])
+               for p in (0, 1, 2)])
 
 
 def main() -> None:
@@ -1593,45 +1925,56 @@ def main() -> None:
     done("the decode batches")
 
     # 6. decode() with its filters on the card
-    counts["decode()"] = phase_decode_api(dev, card)
+    counts["decode()"], autos = phase_decode_api(dev, card)
     phase_host_routed(dev, card, photos, workers)
     done("decode() and the host-routed decode_many")
 
     # 7. the lossy encode, and its round trip through decode_many: at
     # effort 3, then at efforts 5-7 (whose filter launches join the
     # kernels line)
-    phase_lossy_encode(dev, card, photos, workers)
+    e3 = phase_lossy_encode(dev, card, photos, workers)
     done("the effort-3 lossy encode")
-    counts["lossy e5-e7"] = phase_lossy_e7(dev, card, photos, workers)
+    counts["lossy e5-e7"], e7 = phase_lossy_e7(dev, card, photos, workers)
     host_pool.shutdown()
     done("the effort 5-7 lossy encode")
 
-    # 8. decode every lossless stream on the host
+    # 8. the command-line tools and the entry points behind them; their
+    # 4K benchmark_xl process runs on through step 9
+    counts["cli"], pending = phase_cli(dev, card, photos, e3, e7, autos)
+    del autos, e3, e7
+    done("the command-line tools in this process")
+
+    # 9. decode every lossless stream on the host
     jobs = ([(n, s, im) for n, s, im in zip(names, streams, batch)]
             + [("rgba16 two-pass", two_pass, extras["rgba16"]),
                ("gray ans", ans, extras["gray"])])
-    phase_decode(jobs)
-    done("the host decode of the lossless streams")
+    try:
+        phase_decode(jobs)
+        done("the host decode of the lossless streams")
+        finish_cli(pending)
+        done("the 4K benchmark_xl process of the command-line tools")
+    finally:
+        stop_cli(pending)
 
-    # 9. neither jax nor the JAX package was imported
+    # 10. neither jax nor the JAX package was imported
     loaded = [m for m in sys.modules
               if m.split(".")[0] in ("jax", "libjxl_tpu")]
     if loaded:
         raise AssertionError(f"imported: {loaded}")
     print("jax, libjxl_tpu: not imported", flush=True)
 
-    # 10. results
+    # 11. results
     print(card_line(), flush=True)
     rec["bound_share"] = rec["bound_ms"] / rec["ms"]
-    # the filter launches of both decode batches, of decode() and of the
-    # effort 5-7 encode
-    both = dict(gaborish=sum(c["gaborish"] for c in counts.values()),
-                epf_passes=[sum(c["epf_passes"][p] for c in counts.values())
-                            for p in range(3)])
+    # the pack kernel's launches of the lossless encode and of the tools;
+    # the filter launches of both decode batches, of decode(), of the
+    # effort 5-7 encode and of the tools
+    pack_paths = {"lossless encode": launches, "cli": counts["cli"]["pack"]}
     print(json.dumps({"kernels": [
         dict(name="pack_chunks", route="cuda", source=PACK_SOURCE,
-             replaces=PACK_REPLACES, launches=launches, **rec),
-    ] + filter_records(filters, both)}), flush=True)
+             replaces=PACK_REPLACES, launches=sum(pack_paths.values()),
+             paths=pack_paths, **rec),
+    ] + filter_records(filters, counts)}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -256,3 +256,25 @@ def unpack_lossy_outputs(payload: LossyPayload, yb: int, xb: int):
     q[_host(payload.idx).astype(np.int64)] = _host(payload.vals)
     return (q.reshape(yb, xb, 3, 64), _host(payload.q_dc),
             _host(payload.ytox), _host(payload.ytob))
+
+
+def vardct_encode_device(groups_u8: torch.Tensor, dequant_step: torch.Tensor,
+                         inv_dc_step: torch.Tensor):
+    """The VarDCT encode step of the graft entry, on the groups' device.
+
+    groups_u8: (G, 3, gd, gd) uint8 sRGB groups (gd a multiple of 8);
+    dequant_step: (3, 64) float32 per-coefficient dequant step (stored
+    layout); inv_dc_step: (3,) float32 1/mul_dc; both on the groups'
+    device. Returns (q_ac (G, 3, nb, 64) int16, q_dc (G, 3, nby, nbx)
+    int16): XYB with B stored as B - Y (the CfL base ratio 1), the 8x8
+    DCT, the AC divided by its step and the DC multiplied by its inverse
+    step, each rounded half to even."""
+    g, _, gd, _ = groups_u8.shape
+    nb = gd // 8
+    x, y, b = srgb_to_xyb_device(groups_u8).unbind(1)
+    xyb = torch.stack([x, y, b - y], dim=1)
+    stored = dct_stored(xyb, gd, gd, nb, nb)
+    q_ac = torch.round(stored / dequant_step)      # a true division
+    q_ac = q_ac.permute(0, 3, 1, 2, 4).reshape(g, 3, nb * nb, 64)
+    q_dc = torch.round(stored[..., 0] * inv_dc_step).permute(0, 3, 1, 2)
+    return q_ac.to(torch.int16), q_dc.to(torch.int16)
