@@ -39,10 +39,11 @@ Drives the port's two main paths through their entry points:
   within +-1 of the host decode and above a PSNR floor;
 * the VarDCT lossy encode at efforts 5-7, ``encode_lossy_many(imgs,
   LossyOptions(distance=1.0, effort=7, use_device=True))`` on photos 0
-  and 1, and ``encode_lossy`` of photo 2 at d2 e7, photo 0 at d1 e5 and
-  the ragged image at d5 e7 (``E7_JOBS``): the front end, the ACS cost
-  grids, the transform and the butteraugli loop on the card, the loop
-  and the EPF sharpness search through the Gaborish/EPF kernels; every
+  and 1, and ``encode_lossy`` of photo 2 at d2 e7, a 1024x1024 crop of
+  photo 0 at d1 e5 and the ragged image at d5 e7 (``E7_JOBS``): the
+  front end, the ACS cost grids, the transform and the butteraugli loop
+  on the card, the loop and the EPF sharpness search through the
+  Gaborish/EPF kernels; every
   first pass held to the same program on the CPU stage by stage, photo
   0's whole d1 e7 stream to the CPU's (equal, or the fallback gate), and
   every stream through ``decode_many`` on the card within +-1 of the
@@ -55,7 +56,18 @@ Drives the port's two main paths through their entry points:
   launches, ``params.compress`` and ``benchmark_xl`` through the pack
   kernel, the committed JPEGs recompressed and given back byte for byte,
   and ``python -m`` processes of the tools that build nothing and give
-  the in-process files.
+  the in-process files;
+* the multi-device path (``phase_multidevice``) on an 8-slot mesh of the
+  one card (``libjxl_torch.parallel``): the two-pass lossless encode of
+  photo 0 with its 135 groups sharded over 5 slots (one pack launch a
+  slot), ``restore_sharded_padded`` of a 4K frame (each filter pass once
+  a slot, the halo exchange), ``decode()`` of the two 4K fixtures with
+  ``config.shard_decode`` and the sharded VarDCT encode of photo 0 at d1
+  e3, each equal to its unsharded run (the filters bit for bit), and a
+  gloo group of 2 processes of this script (``--multiprocess-worker``)
+  on the same card whose multi-process lossless and VarDCT encodes of
+  photo 0 and decode of the DCT8 fixture
+  (``libjxl_torch.parallel.multihost``) equal the single-process ones.
 
 Phases: environment, build (nvcc for sm_90a, one process per kernel
 source, all at once, + the native host library), the pack kernel and the
@@ -74,7 +86,9 @@ CPU's and the host encoder's, the round trip through ``decode_many``),
 the effort 5-7 encode (the filter launches, the batch rate, the ``prof``
 stages, the device stages' CUDA-event times, a ``torch.profiler`` run,
 the checks above), the command-line tools (each tool's wall ms and
-launches), the host decode of the lossless streams, and a check
+launches), the multi-device path (launches, the sharded and whole-frame
+restore's CUDA-event ms, the processes' start-up and job seconds), the
+host decode of the lossless streams, and a check
 that neither JAX nor the JAX package was imported. The later phases
 print how far into the run they ended. The last two lines are the kernels' JSON
 record and ``{"ok": true, "device": ...}``. Any failure raises and exits
@@ -89,6 +103,7 @@ Run from the repository root, on a machine with a CUDA card:
 and the filter kernels against their plain versions, and prints their
 records as one JSON line (no main path, no ``ok`` line): copied into
 another checkout, it times that checkout's kernels on the same card.
+``--multiprocess-worker`` is the multi-device phase's own use.
 """
 
 import hashlib
@@ -134,21 +149,29 @@ RAGGED_SEED = 23
 PSNR_FLOOR = 40.5
 # the effort 5-7 encode (name, make_image seed, h, w, distance, effort):
 # photos 0 and 1 at d1 e7 through encode_lossy_many (Gaborish + EPF1),
-# photo 2 at d2 e7 (EPF1 + EPF2), photo 0 at d1 e5 (no loop) and the
+# photo 2 at d2 e7 (EPF1 + EPF2), the top-left 1024x1024 of photo 0 at
+# d1 e5 (no loop; its ACS grids run on the host, 46-50 s at 4K) and the
 # ragged image at d5 e7 (EPF0-2, the two-candidate sharpness search);
 # each stream's PSNR floor (dB) and butteraugli ceiling: 0.05 beyond
 # the values that tests/data/torch_vardct_var/e7_quality.py measures for
 # these encodes on the CPU (on the card machine's CPU: 40.5802, 1.5871;
-# 40.5784, 1.4905; 39.5642, 1.9787; 40.6236, 1.6440; 37.5690, 2.2589)
+# 40.5784, 1.4905; 39.5642, 1.9787; the crop 40.7759, 1.3914; 37.5690,
+# 2.2589)
 E7_JOBS = (("photo0_d1_e7", 0, 2160, 3840, 1.0, 7),
            ("photo1_d1_e7", 1, 2160, 3840, 1.0, 7),
            ("photo2_d2_e7", 2, 2160, 3840, 2.0, 7),
-           ("photo0_d1_e5", 0, 2160, 3840, 1.0, 5),
+           ("photo0_d1_e5", 0, 1024, 1024, 1.0, 5),
            ("ragged_d5_e7", RAGGED_SEED, 1001, 1503, 5.0, 7))
 E7_FLOORS = {"photo0_d1_e7": (40.53, 1.637), "photo1_d1_e7": (40.528, 1.540),
-             "photo2_d2_e7": (39.514, 2.028), "photo0_d1_e5": (40.573, 1.694),
+             "photo2_d2_e7": (39.514, 2.028), "photo0_d1_e5": (40.725, 1.441),
              "ragged_d5_e7": (37.519, 2.308)}
 E7_TOL = dict(qf=1e-4, grids=1e-3, block_sums=1e-3, boundary=1e-3)
+# the multi-device phase: an 8-slot mesh of the one card; the sharded
+# lossless encode splits a 4K image's 135 groups of 256 px, which 8 does
+# not divide (the reference then does not shard), over 5 slots
+MESH_SLOTS = 8
+LOSSLESS_MESH_SLOTS = 5
+MULTIPROCESS_WORLD = 2
 
 
 def card_line() -> str:
@@ -1101,10 +1124,20 @@ def phase_lossy_encode(dev, card: str, photos: list, workers: int) -> list:
     return streams
 
 
+def e7_image(seed: int, h: int, w: int, photos: list | None = None):
+    """The image of an E7_JOBS entry: the top-left h x w of main-path
+    photo ``seed`` (seeds 0-7, 3840x2160; from ``photos`` when given),
+    else ``bench.make_image(seed, h, w)``."""
+    from bench import make_image
+    if seed >= 8:
+        return make_image(seed, h, w)
+    photo = photos[seed] if photos else make_image(seed, 2160, 3840)
+    return photo[:h, :w]
+
+
 def _e7_images(photos: list) -> dict:
     """The images of E7_JOBS by name (the 4K photos are the main path's)."""
-    from bench import make_image
-    return {name: (photos[seed] if h == 2160 else make_image(seed, h, w))
+    return {name: e7_image(seed, h, w, photos)
             for name, seed, h, w, _, _ in E7_JOBS}
 
 
@@ -1739,6 +1772,295 @@ def phase_cli(dev, card: str, photos: list, e3: list, e7: dict,
         raise
 
 
+def _restore_inputs(dev):
+    """phase_filters' 3840x2160 XYB frame (the same seed and draw) with
+    per-block raw quant 1..59 and EPF sharpness 0..7, on ``dev``."""
+    import torch
+    rng = np.random.default_rng(2160)
+    xyb = ((rng.random((3, 2160, 3840)) - 0.4) * 0.3).astype(np.float32)
+    rng = np.random.default_rng(2161)
+    rq = rng.integers(1, 60, (270, 480)).astype(np.int32)
+    sh = rng.integers(0, 8, (270, 480)).astype(np.int32)
+    return [torch.from_numpy(a).to(dev) for a in (xyb, rq, sh)]
+
+
+def multiprocess_worker(port: str, rank: str, world: str, out_dir: str,
+                        device: str) -> None:
+    """One process of ``phase_multidevice``'s gloo group, its device work
+    on ``device`` (``cuda:0``, beside the others): the multi-process
+    lossless and VarDCT encodes of photo 0 and the multi-process decode
+    of the 4K DCT8 fixture (``libjxl_torch.parallel.multihost``). Rank 0
+    writes the results to ``out_dir``; every rank prints one JSON line:
+    when it was ready (the group joined, the device's context made; host
+    clock), each job's seconds and its filter launches."""
+    import torch
+    import torch.distributed as dist
+    from bench import make_image
+
+    from libjxl_torch.api.encoder import EncodeOptions
+    from libjxl_torch.config import config
+    from libjxl_torch.parallel.multihost import (
+        decode_multihost, encode_lossless_multihost, encode_lossy_multihost,
+    )
+    from libjxl_torch.vardct.frame_enc import LossyOptions
+
+    rank, world = int(rank), int(world)
+    config.device = device
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            world_size=world, rank=rank)
+    try:
+        torch.zeros(1, device=device)
+        ready = time.time()
+        photo = make_image(0, 2160, 3840)
+        _, streams = load_fixtures(FIXTURES)
+        jobs = dict(
+            lossless=lambda: encode_lossless_multihost(photo,
+                                                       EncodeOptions()),
+            vardct=lambda: encode_lossy_multihost(
+                photo, LossyOptions(distance=1.0, effort=3)),
+            decode=lambda: decode_multihost(streams[DECODE_API[0][1]]))
+        seconds, out = {}, {}
+        for name, job in jobs.items():
+            t0 = time.perf_counter()
+            out[name] = job()
+            seconds[name] = time.perf_counter() - t0
+        if rank == 0:
+            for name in ("lossless", "vardct"):
+                with open(os.path.join(out_dir, name + ".jxl"), "wb") as f:
+                    f.write(out[name])
+            np.save(os.path.join(out_dir, "decode.npy"), out["decode"])
+        elif any(v is not None for v in out.values()):
+            raise AssertionError(f"rank {rank} got a result")
+    finally:
+        dist.destroy_process_group()
+    c = _filter_counts()
+    print(json.dumps(dict(rank=rank, ready=ready, seconds=seconds,
+                          launches=[c["gaborish"]] + c["epf_passes"])),
+          flush=True)
+
+
+def phase_multidevice(dev, card: str, photos: list) -> tuple:
+    """The multi-device path on an 8-slot mesh of the one card (5 slots
+    for the lossless encode, whose 135 groups 8 does not divide):
+
+    * the sharded two-pass lossless encode of photo 0 (``encode_lossless``,
+      prefix-device, ``config.shard_encode``): one pack launch a slot, the
+      unsharded stream byte for byte;
+    * ``restore_sharded_padded`` of phase_filters' 4K frame, Gaborish and
+      EPF 0/1/2 on: each pass launched once a slot, the whole-frame
+      ``restore`` on the card bit for bit; CUDA-event ms of both;
+    * ``decode()`` of the two 4K fixtures of DECODE_API with
+      ``config.shard_decode`` and ``device_filters = True``: each filter
+      the header asks for launched once a slot, the resident decode's
+      pixels;
+    * the sharded VarDCT encode of photo 0 at d1 e3: the unsharded card
+      stream;
+    * ``graft_entry.dryrun_multichip(8)`` on the card;
+    * one gloo group of 2 processes on ``cuda:0`` (``--multiprocess-
+      worker``; started first, no nvcc to be found), whose multi-process
+      encodes and decode equal ``encode_lossless_streaming``,
+      ``encode_lossy_streaming`` and ``decode()`` here, and which build
+      nothing.
+
+    Returns the launches of the sharded runs, counted from 0 just before
+    them, and the sharded lossless stream."""
+    import socket
+    import tempfile
+
+    import torch
+
+    from libjxl_torch.api.decoder import decode
+    from libjxl_torch.api.encoder import (
+        EncodeOptions, encode_lossless, encode_lossless_streaming,
+    )
+    from libjxl_torch.config import config
+    from libjxl_torch.core.frame_header import LoopFilter
+    from libjxl_torch.graft_entry import dryrun_multichip
+    from libjxl_torch.models.vardct_pipeline import \
+        encode_lossy_frame_device_sharded
+    from libjxl_torch.parallel.mesh import make_mesh, shard_groups
+    from libjxl_torch.parallel.shard_filters import (
+        restore_sharded, restore_sharded_padded,
+    )
+    from libjxl_torch.render.filters_torch import lf_params, restore
+    from libjxl_torch.vardct.frame_enc import (
+        LossyOptions, encode_lossy, encode_lossy_streaming,
+    )
+
+    t_phase = time.perf_counter()
+    meshes = {n: make_mesh(n, dev) for n in (MESH_SLOTS, LOSSLESS_MESH_SLOTS)}
+    for n, mesh in meshes.items():
+        if mesh.size != n or set(mesh.slots) != {dev}:
+            raise AssertionError(f"mesh of {n} slots on {dev}: {mesh}")
+    photo = photos[0]
+
+    # the multi-process group, started first: its start-up overlaps the
+    # in-process runs
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_mp_")
+    built = _built()
+    s = socket.socket()
+    s.bind(("localhost", 0))
+    port = s.getsockname()[1]
+    s.close()
+    env = _no_nvcc_env(tmp)
+    t_spawn = time.time()
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--multiprocess-worker",
+         str(port), str(r), str(MULTIPROCESS_WORLD), tmp, str(dev)],
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for r in range(MULTIPROCESS_WORLD)]
+    saved = (config.shard_encode, config.shard_decode, config.mesh_slots,
+             config.device_filters)
+    try:
+        # the unsharded runs
+        opts = EncodeOptions(use_device=True, entropy="prefix-device")
+        base_lossless = encode_lossless(photo, opts, device=dev)
+        lopts = LossyOptions(distance=1.0, effort=3, use_device=True)
+        base_lossy = encode_lossy(photo, lopts, device=dev)
+        x, rq, sh = _restore_inputs(dev)
+        lf = LoopFilter()
+        lf.gab, lf.epf_iters = True, 3
+        whole = restore(x, rq, sh, 0.005, lf_params(lf, dev), True, 3)
+        fixtures = []
+        config.device_filters = True
+        for directory, name in DECODE_API:
+            manifest, streams = load_fixtures(directory)
+            m = manifest[name]
+            fixtures.append((name, streams[name], decode(streams[name],
+                                                         device=dev),
+                             [m["gab"]] + [int(m["epf_iters"] >= k)
+                                           for k in (3, 1, 2)]))
+        torch.cuda.synchronize()
+
+        # the sharded runs, their launches counted from 0
+        calls = (shard_groups.calls, restore_sharded.calls,
+                 encode_lossy_frame_device_sharded.calls)
+        _reset_filter_counts()
+        from libjxl_torch.models.pack_kernel import pack_chunks
+        pack0 = pack_chunks.launches
+        config.shard_encode = True
+        config.mesh_slots = LOSSLESS_MESH_SLOTS
+        t0 = time.perf_counter()
+        lossless = encode_lossless(photo, opts, device=dev)
+        t_lossless = time.perf_counter() - t0
+        config.shard_encode = False
+        config.mesh_slots = MESH_SLOTS
+        sharded = restore_sharded_padded(x, lf, rq, sh, 0.005,
+                                         mesh=meshes[MESH_SLOTS])
+        config.shard_decode = True
+        decoded = [decode(data, device=dev) for _, data, _, _ in fixtures]
+        config.shard_decode = False
+        config.shard_encode = True
+        lossy = encode_lossy(photo, lopts, device=dev)
+        config.shard_encode = False
+        torch.cuda.synchronize()
+        counts = dict(pack=pack_chunks.launches - pack0, **_filter_counts())
+        ran = [a - b for a, b in zip(
+            (shard_groups.calls, restore_sharded.calls,
+             encode_lossy_frame_device_sharded.calls), calls)]
+
+        got = [counts["pack"], counts["gaborish"]] + counts["epf_passes"]
+        want = [LOSSLESS_MESH_SLOTS] + [MESH_SLOTS * (1 + sum(
+            f[3][k] for f in fixtures)) for k in range(4)]
+        print(f"multidevice phase: launches (counted from 0) pack, "
+              f"Gaborish, EPF0/1/2 {got}, want {want} (pack once a slot of "
+              f"{LOSSLESS_MESH_SLOTS}; each filter pass once a slot of "
+              f"{MESH_SLOTS} for the restore and each fixture's header); "
+              f"sharded branches run (lossless, filters, VarDCT) {ran}",
+              flush=True)
+        if got != want or ran != [1, 1 + len(fixtures), 1]:
+            raise AssertionError(f"multidevice phase: launches {got} / "
+                                 f"branches {ran}, want {want} / "
+                                 f"[1, {1 + len(fixtures)}, 1]")
+        if lossless != base_lossless:
+            raise AssertionError("sharded lossless stream != unsharded")
+        print(f"multidevice sharded lossless encode of photo 0 on "
+              f"{LOSSLESS_MESH_SLOTS} slots: the unsharded stream byte for "
+              f"byte ({len(lossless)} bytes, {t_lossless} s)", flush=True)
+        if sharded.device != whole.device or not torch.equal(sharded, whole):
+            err = float((sharded.cpu() - whole.cpu()).abs().max())
+            raise AssertionError(f"sharded restore != whole-frame restore "
+                                 f"(max abs err {err})")
+        for (name, _, want_px, _), got_px in zip(fixtures, decoded):
+            if not np.array_equal(got_px, want_px):
+                raise AssertionError(f"sharded decode() of {name} != the "
+                                     "resident decode()")
+        print(f"multidevice sharded decode() of {[f[0] for f in fixtures]}:"
+              f" the resident decode()'s pixels", flush=True)
+        if lossy != base_lossy:
+            raise AssertionError("sharded VarDCT stream != unsharded")
+        print(f"multidevice sharded VarDCT encode of photo 0 at d1 e3: the "
+              f"unsharded card stream byte for byte ({len(lossy)} bytes)",
+              flush=True)
+
+        # the filters' times, whole frame against 8 shards
+        mesh = meshes[MESH_SLOTS]
+        ms_whole = _time_ms(lambda: restore(x, rq, sh, 0.005,
+                                            lf_params(lf, dev), True, 3), 10)
+        ms_sharded = _time_ms(lambda: restore_sharded_padded(
+            x, lf, rq, sh, 0.005, mesh=mesh), 10)
+        print(f"multidevice restore of 3x2160x3840, Gaborish + EPF0/1/2: "
+              f"bit for bit equal; CUDA-event ms whole frame {ms_whole}, "
+              f"{MESH_SLOTS} shards {ms_sharded} (ratio "
+              f"{ms_sharded / ms_whole}), on {card}", flush=True)
+        del x, rq, sh, whole, sharded
+
+        t0 = time.perf_counter()
+        dryrun_multichip(MESH_SLOTS, device=dev)
+        print(f"multidevice graft_entry.dryrun_multichip({MESH_SLOTS}) on "
+              f"the card: passed ({time.perf_counter() - t0} s)", flush=True)
+
+        # the single-process twins of the multi-process jobs
+        t0 = time.perf_counter()
+        config.device_filters = None
+        twins = dict(
+            lossless=b"".join(encode_lossless_streaming(photo,
+                                                        EncodeOptions())),
+            vardct=encode_lossy_streaming(photo, LossyOptions(
+                distance=1.0, effort=3)),
+            decode=decode(fixtures[0][1], device=dev))
+        t_twins = time.perf_counter() - t0
+        reports = []
+        for p in procs:
+            out, err = p.communicate(timeout=600)
+            if p.returncode != 0:
+                raise AssertionError(f"multiprocess worker exited "
+                                     f"{p.returncode}:\n{err[-3000:]}")
+            reports.append(json.loads(out.strip().splitlines()[-1]))
+        t_group = time.time() - t_spawn
+        for name in ("lossless", "vardct"):
+            with open(os.path.join(tmp, name + ".jxl"), "rb") as f:
+                if f.read() != twins[name]:
+                    raise AssertionError(f"multi-process {name} stream != "
+                                         "the single-process one")
+        if not np.array_equal(np.load(os.path.join(tmp, "decode.npy")),
+                              twins["decode"]):
+            raise AssertionError("multi-process decode != decode()")
+        if _built() != built:
+            raise AssertionError("a multiprocess worker built a kernel")
+        print(f"multidevice {MULTIPROCESS_WORLD} processes (gloo, on "
+              f"{dev}): lossless and VarDCT streams and the decode of "
+              f"{fixtures[0][0]} equal the single-process runs; no kernel "
+              f"built; start-up to ready (s) "
+              f"{[r['ready'] - t_spawn for r in reports]}, job seconds "
+              f"{[r['seconds'] for r in reports]}, filter launches "
+              f"{[r['launches'] for r in reports]}; the group's wall "
+              f"{t_group} s; the single-process twins {t_twins} s here",
+              flush=True)
+    finally:
+        (config.shard_encode, config.shard_decode, config.mesh_slots,
+         config.device_filters) = saved
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+        import shutil
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"multidevice phase: {time.perf_counter() - t_phase} s, on "
+          f"{card_line()}", flush=True)
+    return counts, lossless
+
+
 def _leaves(frame):
     """The arrays of a FrameRecon or FrameReconVar, in a fixed order."""
     for name, v in zip(frame._fields, frame):
@@ -1822,6 +2144,10 @@ def filter_records(filters: dict, by_path: dict) -> list:
 
 def main() -> None:
     import torch
+    if sys.argv[1:2] == ["--multiprocess-worker"]:
+        # a process of phase_multidevice's group, on the device it is given
+        multiprocess_worker(*sys.argv[2:])
+        return
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is false")
     try:
@@ -1939,15 +2265,30 @@ def main() -> None:
     done("the effort 5-7 lossy encode")
 
     # 8. the command-line tools and the entry points behind them; their
-    # 4K benchmark_xl process runs on through step 9
+    # 4K benchmark_xl process runs on through step 10
     counts["cli"], pending = phase_cli(dev, card, photos, e3, e7, autos)
     del autos, e3, e7
     done("the command-line tools in this process")
 
-    # 9. decode every lossless stream on the host
+    # 9. the multi-device path: an 8-slot mesh of the card, and a group
+    # of 2 processes on it
+    try:
+        counts["multidevice"], sharded = phase_multidevice(dev, card, photos)
+    except BaseException:
+        stop_cli(pending)
+        raise
+    done("the multi-device path")
+
+    # 10. decode every lossless stream on the host (the sharded stream is
+    # decoded apart only where it is not photo 0's stream of step 4)
     jobs = ([(n, s, im) for n, s, im in zip(names, streams, batch)]
             + [("rgba16 two-pass", two_pass, extras["rgba16"]),
                ("gray ans", ans, extras["gray"])])
+    if sharded == streams[0]:
+        print("multidevice sharded lossless stream: photo 0's stream of "
+              "the main path byte for byte, decoded below", flush=True)
+    else:
+        jobs.append(("photo0 sharded two-pass", sharded, photos[0]))
     try:
         phase_decode(jobs)
         done("the host decode of the lossless streams")
@@ -1956,20 +2297,22 @@ def main() -> None:
     finally:
         stop_cli(pending)
 
-    # 10. neither jax nor the JAX package was imported
+    # 11. neither jax nor the JAX package was imported
     loaded = [m for m in sys.modules
               if m.split(".")[0] in ("jax", "libjxl_tpu")]
     if loaded:
         raise AssertionError(f"imported: {loaded}")
     print("jax, libjxl_tpu: not imported", flush=True)
 
-    # 11. results
+    # 12. results
     print(card_line(), flush=True)
     rec["bound_share"] = rec["bound_ms"] / rec["ms"]
-    # the pack kernel's launches of the lossless encode and of the tools;
-    # the filter launches of both decode batches, of decode(), of the
-    # effort 5-7 encode and of the tools
-    pack_paths = {"lossless encode": launches, "cli": counts["cli"]["pack"]}
+    # the pack kernel's launches of the lossless encode, of the tools and
+    # of the multi-device path; the filter launches of both decode
+    # batches, of decode(), of the effort 5-7 encode, of the tools and of
+    # the multi-device path
+    pack_paths = {"lossless encode": launches, "cli": counts["cli"]["pack"],
+                  "multidevice": counts["multidevice"]["pack"]}
     print(json.dumps({"kernels": [
         dict(name="pack_chunks", route="cuda", source=PACK_SOURCE,
              replaces=PACK_REPLACES, launches=sum(pack_paths.values()),

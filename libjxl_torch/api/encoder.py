@@ -1157,23 +1157,52 @@ def _prefix_pass1(batch_imgs: list, options: EncodeOptions, device=None,
     ``_prefix_upload`` result when it is on the device already."""
     imgs = [_hwc(im) for im in batch_imgs]
     groups, dims = staged or _prefix_upload(imgs, options, device)
-    wide, valid, payload = lossless_tokens_device(
-        groups, dims["h"], dims["w"], gx=dims["gx"],
-        per_image=dims["per_image"] if len(imgs) > 1 else 0)
+    shards = [groups]
+    from libjxl_torch.config import config as _cfg
+    if _cfg.shard_encode:
+        # multi-device: split the group axis over the mesh's slots; the
+        # histogram is the sum of the shards' (the reference's psum)
+        from libjxl_torch.parallel.mesh import make_mesh, shard_groups
+        mesh = make_mesh(_cfg.mesh_slots, groups.device)
+        if mesh.size > 1 and groups.shape[0] % mesh.size == 0:
+            shards = shard_groups(mesh, groups)
+    parts = [lossless_tokens_device(
+        g, dims["h"], dims["w"], gx=dims["gx"],
+        per_image=dims["per_image"] if len(imgs) > 1 else 0,
+        g0=i * g.shape[0]) for i, g in enumerate(shards)]
     st = _batch_state(imgs, options, dims, groups.shape[0])
-    st.update(wide=wide, valid=valid, payload=payload,
+    st.update(wide=[p[0] for p in parts], valid=[p[1] for p in parts],
+              payload=_shard_payload([p[2] for p in parts], shards),
               groups_shape=tuple(groups.shape), dtype=imgs[0].dtype)
     return st
 
 
+def _shard_payload(payloads: list, shards: list) -> torch.Tensor:
+    """One probe payload from the shards' (per-group maxes in group
+    order, then the summed histogram), on the first shard's device."""
+    if len(payloads) == 1:
+        return payloads[0]
+    dev = payloads[0].device
+    gmax = [p[:4 * g.shape[0]].to(dev) for p, g in zip(payloads, shards)]
+    hist = sum(p[4 * g.shape[0]:].view(torch.int32).to(dev)
+               for p, g in zip(payloads, shards))
+    return torch.cat(gmax + [hist.view(torch.uint8)])
+
+
 def _prefix_pass2(st: dict) -> dict:
     """Build the prefix code from pass 1's own histogram and pack the
-    words on the device with it. (The reference may instead fetch the
-    residuals and pack on the host; the bitstream is the same.)"""
+    words on the device with it, one pack per shard of pass 1, the
+    shards' words and chunk bits spliced in group order. (The reference
+    may instead fetch the residuals and pack on the host; the bitstream
+    is the same.)"""
     cst = _prefix_code_state(st["payload"].cpu().numpy(),
                              st["groups_shape"], st["dtype"])
-    lut = prefix_state_to_device(cst, st["wide"].device)
-    words, chunk_bits = chunk_pack_device(st["wide"], st["valid"], lut)
+    packed = [chunk_pack_device(wide, valid,
+                                prefix_state_to_device(cst, wide.device))
+              for wide, valid in zip(st["wide"], st["valid"])]
+    dev = st["wide"][0].device
+    words, chunk_bits = (torch.cat([p[k].to(dev) for p in packed])
+                         for k in (0, 1))
     out = {k: v for k, v in st.items()
            if k not in ("wide", "valid", "payload")}
     out.update(codes=cst["codes"], words_dev=words,

@@ -27,10 +27,24 @@ class RuntimeConfig:
     # 4 MP, the reference's threshold, so that the port and the JAX
     # package filter every frame size on the same side.
     device_filters: bool | None = None
+    # Shard the group axis of device encode passes over the mesh's slots
+    # (parallel/mesh.py; groups are THE parallel axis of JPEG XL,
+    # SURVEY.md 2.2). Histograms become sums of the shards'; the
+    # emitted bitstream is identical to the single-device one.
+    shard_encode: bool = False
     # The effort >= 5 device path: run the variable-block forward
     # transforms + quantization on the device (models/vardct_transform)
     # instead of on the host from the fetched XYB plane.
     device_transform: bool = True
+    # Shard decode()'s restoration filters over the mesh's slots (row
+    # bands + halo exchange, parallel/shard_filters.py); the output is
+    # bit-identical to the single-device filters.
+    shard_decode: bool = False
+    # Slots of the mesh that the sharded paths use: None = one per
+    # visible device of the configured device's type (the reference's
+    # len(jax.devices())); n = n slots dealt round-robin over them, so
+    # one card can hold a mesh of several slots.
+    mesh_slots: int | None = None
     # decode() switches to the banded low-memory decoder above this
     # many pixels (low_memory_render_pipeline.cc spirit): pixel
     # intermediates stay bounded by ~3 group rows. 64 MP default.

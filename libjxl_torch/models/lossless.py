@@ -54,10 +54,11 @@ def upload_groups(groups: np.ndarray, device) -> torch.Tensor:
 
 
 def _group_mask(ng: int, gd: int, h: int, w: int, gx: int,
-                per_image: int, device) -> torch.Tensor:
-    """(G, 1, gd, gd) validity of each group pixel; groups of a stacked
-    batch repeat every ``per_image`` groups (0 = one image)."""
-    gi = torch.arange(ng, device=device)
+                per_image: int, device, g0: int = 0) -> torch.Tensor:
+    """(G, 1, gd, gd) validity of each group pixel of groups ``g0`` to
+    ``g0 + G``; groups of a stacked batch repeat every ``per_image``
+    groups (0 = one image)."""
+    gi = torch.arange(g0, g0 + ng, device=device)
     if per_image:
         gi = gi % per_image
     row0 = (gi // gx) * gd
@@ -146,15 +147,16 @@ def encode_image_device_collect(dev):
 
 
 def lossless_tokens_device(groups: torch.Tensor, h: int, w: int,
-                           gx: int = 1, per_image: int = 0):
+                           gx: int = 1, per_image: int = 0, g0: int = 0):
     """Pass 1 of the two-pass encode: residuals + token histogram.
 
     groups: (G_total, C, gd, gd), possibly a batch of images stacked along
-    the group axis (``per_image`` groups each; 0 = one image). Returns
-    (wide int32 residuals, zero outside the image; valid mask broadcast
-    to their shape; the probe payload of ``lossless_hist_device``)."""
+    the group axis (``per_image`` groups each; 0 = one image), or the
+    shard of that stack that starts at group ``g0``. Returns (wide int32
+    residuals, zero outside the image; valid mask broadcast to their
+    shape; the probe payload of ``lossless_hist_device``)."""
     ng, _, gd, _ = groups.shape
-    mask = _group_mask(ng, gd, h, w, gx, per_image, groups.device)
+    mask = _group_mask(ng, gd, h, w, gx, per_image, groups.device, g0)
     packed = _packed_residuals(groups)
     valid = torch.broadcast_to(mask, packed.shape)
     wide = torch.where(valid, packed, 0)

@@ -245,6 +245,67 @@ def encode_lossy_frame_device_batch(pixels_u8_b, qac, inv_qac, table,
     return [LossyPayload(*f) for f in zip(idx, vals, q_dc, ytox, ytob)]
 
 
+def encode_lossy_frame_device_sharded(pixels: np.ndarray, qac: np.ndarray,
+                                      inv_qac: np.ndarray, table, thres_y,
+                                      thres_xb, mul_dc, h: int, w: int,
+                                      yb: int, xb: int, x_qm_mul: float,
+                                      mesh=None):
+    """Multi-device VarDCT encode: the SAME ``_frame_body`` math run on
+    row bands, one per slot of ``mesh`` (default: one slot per visible
+    device of ``config.device``), each on its slot's device (the
+    production analog of the reference's per-group RunOnPool loop,
+    enc_frame.cc:1232).
+
+    Every step is block/tile-local, so bands need no exchange at all;
+    bands are 64-pixel (one CfL tile row) aligned, and the outputs are
+    bit-identical to the single-device program. Returns numpy (q_ac
+    (yb, xb, 3, 64) i32, q_dc (yb, xb, 3) i32, ytox, ytob), what
+    ``unpack_lossy_outputs`` returns. The reference can also hand back
+    its compiled HLO (``hlo_out``) to show that no collective runs;
+    here the bands share nothing but their inputs, so there is no
+    program to audit and no such argument.
+    ``encode_lossy_frame_device_sharded.calls`` counts the runs."""
+    from libjxl_torch.parallel.mesh import make_mesh
+
+    mesh = mesh or make_mesh()
+    n = mesh.size
+    # pad: real image -> block grid (edge, same as the one-device
+    # program), then BLACK to a whole number of 64px bands per slot:
+    # XYB(black) is exactly 0 (opsin bias construction), so padded blocks
+    # add zeros to the CfL tile dot products, matching the one-device
+    # program's zero-padded partial tiles bit for bit
+    band = 64 * n
+    hp_ = ((yb * 8 + band - 1) // band) * band
+    yb_p = hp_ // 8
+    px = np.pad(np.asarray(pixels)[:, :, :3],
+                ((0, yb * 8 - h), (0, xb * 8 - w), (0, 0)), mode="edge")
+    px = np.pad(px, ((0, hp_ - yb * 8), (0, 0), (0, 0)))
+    qac_p = np.ones((yb_p, xb), np.float32)
+    qac_p[:yb, :] = qac
+    iq_p = np.ones((yb_p, xb), np.float32)
+    iq_p[:yb, :] = inv_qac
+    ys = hp_ // n
+    ybs = yb_p // n
+    encode_lossy_frame_device_sharded.calls += 1
+    outs = []
+    for i, dev in enumerate(mesh.slots):
+        outs.append(_frame_body(
+            _upload(px[None, i * ys:(i + 1) * ys], dev),
+            _upload(qac_p[i * ybs:(i + 1) * ybs], dev),
+            _upload(iq_p[i * ybs:(i + 1) * ybs], dev),
+            _upload(table, dev, _f32), _upload(thres_y, dev, _f32),
+            _upload(thres_xb, dev, _f32), _upload(mul_dc, dev, _f32),
+            ys, xb * 8, ybs, xb, x_qm_mul))
+    q_ac, q_dc, ytox, ytob = (
+        np.concatenate([o[k][0].cpu().numpy() for o in outs])
+        for k in range(4))
+    ty_n, tx_n = -(-yb // 8), -(-xb // 8)
+    return q_ac[:yb], q_dc[:yb], ytox[:ty_n, :tx_n], ytob[:ty_n, :tx_n]
+
+
+encode_lossy_frame_device_sharded.calls = 0
+
+
 def _host(a) -> np.ndarray:
     return a.cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
 

@@ -68,13 +68,25 @@ class DeviceRestoreStage(Stage):
     """Gaborish + EPF on the device in float32 (render/filters_torch.py,
     the hand kernels on a CUDA device); replaces GaborishStage+EpfStage
     on the device path and leaves the result on the device for
-    ``decode()``'s fused colour output."""
+    ``decode()``'s fused colour output. With ``config.shard_decode`` and
+    a mesh of more than one slot the filters run row-sharded over the
+    mesh (parallel/shard_filters.py), the result on its first slot."""
 
     name = "device-restore"
 
     def process(self, img, ctx):
-        from libjxl_torch.render.filters_torch import restore_device
+        from libjxl_torch.config import config
         dec, lf = ctx["dec"], ctx["lf"]
+        if config.shard_decode:
+            from libjxl_torch.parallel.mesh import make_mesh
+            mesh = make_mesh(config.mesh_slots, ctx["device"])
+            if mesh.size > 1:
+                from libjxl_torch.parallel.shard_filters import \
+                    restore_sharded_padded
+                return restore_sharded_padded(
+                    np.asarray(img), lf, dec.raw_quant,
+                    dec.epf_sharpness, dec.quantizer.scale, mesh=mesh)
+        from libjxl_torch.render.filters_torch import restore_device
         return restore_device(img, lf, dec.raw_quant, dec.epf_sharpness,
                               dec.quantizer.scale, fetch=False,
                               device=ctx["device"])

@@ -477,20 +477,41 @@ def encode_lossy(pixels: np.ndarray, options: LossyOptions | None = None,
                  raw_quant.astype(np.float32))
         inv_qac_f = (inv_gs / raw_quant.astype(np.float32))
         payload = options._predispatched
-        if payload is None:
-            payload = encode_lossy_frame_device(
-                pixels[:, :, :3], qac_f, inv_qac_f,
-                np.asarray(table, np.float32),
-                quadrant_thresholds(0.56, 0.62).astype(np.float32),
-                quadrant_thresholds(0.58, 0.62).astype(np.float32),
-                np.asarray(mul_dc, np.float32),
-                h=h, w=w, yb=yb, xb=xb, x_qm_mul=x_qm_mul, device=device)
-            if options._dispatch_only:
-                # serving mode: the payload still on the device;
-                # encode_lossy_many fetches it on its host pool
-                return payload
-        q_ac, q_dc, ytox_map, ytob_map = unpack_lossy_outputs(
-            payload, yb, xb)
+        from libjxl_torch.config import config as _cfg
+        mesh = None
+        if _cfg.shard_encode and payload is None and \
+                not options._dispatch_only:
+            from libjxl_torch.parallel.mesh import make_mesh
+            mesh = make_mesh(_cfg.mesh_slots, device)
+        if mesh is not None and mesh.size > 1:
+            # multi-device: the same math over row bands, one a slot
+            # (models/vardct_pipeline.encode_lossy_frame_device_sharded)
+            from libjxl_torch.models.vardct_pipeline import \
+                encode_lossy_frame_device_sharded
+            q_ac, q_dc, ytox_map, ytob_map = \
+                encode_lossy_frame_device_sharded(
+                    pixels, qac_f, inv_qac_f,
+                    np.asarray(table, np.float32),
+                    quadrant_thresholds(0.56, 0.62).astype(np.float32),
+                    quadrant_thresholds(0.58, 0.62).astype(np.float32),
+                    np.asarray(mul_dc, np.float32),
+                    h=h, w=w, yb=yb, xb=xb, x_qm_mul=x_qm_mul, mesh=mesh)
+        else:
+            if payload is None:
+                payload = encode_lossy_frame_device(
+                    pixels[:, :, :3], qac_f, inv_qac_f,
+                    np.asarray(table, np.float32),
+                    quadrant_thresholds(0.56, 0.62).astype(np.float32),
+                    quadrant_thresholds(0.58, 0.62).astype(np.float32),
+                    np.asarray(mul_dc, np.float32),
+                    h=h, w=w, yb=yb, xb=xb, x_qm_mul=x_qm_mul,
+                    device=device)
+                if options._dispatch_only:
+                    # serving mode: the payload still on the device;
+                    # encode_lossy_many fetches it on its host pool
+                    return payload
+            q_ac, q_dc, ytox_map, ytob_map = unpack_lossy_outputs(
+                payload, yb, xb)
         use_acs = False
         acs_map = np.zeros((yb, xb), np.int32)
         acs_anchors = np.ones((yb, xb), bool)

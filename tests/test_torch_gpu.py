@@ -356,3 +356,52 @@ def test_e7_encode_on_card_meets_gate():
     opts = LossyOptions(distance=1.0, effort=7, use_device=True)
     equal_or_gate(img, encode_lossy(img, opts, device=dev),
                   encode_lossy(img, opts, device="cpu"))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("h,w", [(1080, 1920), (509, 333)])
+@pytest.mark.parametrize("gab,epf_iters", [(True, 3), (False, 2)])
+def test_restore_sharded_on_card_equals_whole_frame(h, w, gab, epf_iters):
+    """The row-sharded filters on a 4-slot mesh of the card (the halo
+    exchange, one launch per shard and pass) equal the whole-frame
+    filters on the card bit for bit, custom constants included."""
+    from libjxl_torch.models.filter_kernels import epf_filter, gaborish_filter
+    from libjxl_torch.parallel.mesh import make_mesh
+    from libjxl_torch.parallel.shard_filters import restore_sharded_padded
+    from libjxl_torch.render.filters_torch import restore_device
+    dev = _card()
+    rng = np.random.default_rng(h)
+    xyb = ((rng.random((3, h, w)) - 0.4) * 0.3).astype(np.float32)
+    rq = rng.integers(1, 40, (-(-h // 8), -(-w // 8))).astype(np.int32)
+    sh = rng.integers(0, 8, rq.shape).astype(np.int32)
+    lf = _custom_lf(gab, epf_iters)
+    mesh = make_mesh(4, dev)
+    g0, e0 = gaborish_filter.launches, epf_filter.launches
+    got = restore_sharded_padded(xyb, lf, rq, sh, 0.005, mesh=mesh)
+    assert gaborish_filter.launches - g0 == 4 * int(gab)
+    assert epf_filter.launches - e0 == 4 * epf_iters
+    want = restore_device(xyb, lf, rq, sh, 0.005, fetch=False, device=dev)
+    assert got.device == want.device
+    assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+def test_sharded_pack_on_card_gives_unsharded_stream(monkeypatch):
+    """The two-pass lossless encode with its groups sharded over a 4-slot
+    mesh of the card (one pack launch per shard) gives the unsharded
+    stream."""
+    import libjxl_torch.config as C
+    from libjxl_torch.api.encoder import EncodeOptions, encode_lossless
+    from libjxl_torch.models.pack_kernel import pack_chunks
+    dev = _card()
+    rng = np.random.default_rng(5)
+    img = np.clip(np.cumsum(rng.integers(-3, 4, (1000, 1024, 3)), axis=1),
+                  0, 255).astype(np.uint8)
+    opts = EncodeOptions(use_device=True, entropy="prefix-device")
+    base = encode_lossless(img, opts, device=dev)
+    monkeypatch.setattr(C.config, "shard_encode", True)
+    monkeypatch.setattr(C.config, "mesh_slots", 4)
+    before = pack_chunks.launches
+    got = encode_lossless(img, opts, device=dev)
+    assert pack_chunks.launches - before == 4
+    assert got == base

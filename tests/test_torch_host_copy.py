@@ -59,10 +59,10 @@ EDITED = {
                      "_prefix_fused", "_prefix_assemble",
                      "_assemble_lossless_device"}, set()),
     "render/filters": (set(), set()),
-    # the device restore stages run on ctx["device"], without the
-    # sharded-filter branch; with it went DeviceRestoreStage's ``keep``
-    # option (the whole-frame stage always leaves its result on the
-    # device), so build_render_pipeline builds it without one
+    # the device restore stages run on ctx["device"]; DeviceRestoreStage
+    # has no ``keep`` option (the whole-frame stage always leaves its
+    # result on the device, the sharded filters' on the mesh's first
+    # slot), so build_render_pipeline builds it without one
     "render/pipeline": ({"DeviceRestoreStage", "BandedDeviceRestoreStage",
                          "build_render_pipeline"}, set()),
     "utils/native": ({"_build", "get_lib"}, set()),
@@ -79,7 +79,8 @@ EDITED = {
     # ``device``, which the iterated encode and the EPF sharpness search
     # pass on to their scorers (and the legacy loop to decode());
     # encode_lossy_many runs the port's batch program at effort <= 4 and
-    # each image's whole encode once on its threads at effort >= 5
+    # each image's whole encode once on its threads at effort >= 5;
+    # encode_lossy's shard_encode branch runs on the port's mesh
     "vardct/frame_enc": ({"LossyOptions", "encode_lossy",
                           "encode_lossy_many", "_encode_lossy_iterated",
                           "_encode_lossy_iterated_legacy",
@@ -115,7 +116,8 @@ PORTED = {"__init__", "metrics/butteraugli", "models/lossless",
           "models/pack_kernel", "models/vardct_decode",
           "models/vardct_heuristics", "models/vardct_loop",
           "models/vardct_pipeline", "models/vardct_transform",
-          "ops/modular_ops"}
+          "ops/modular_ops", "parallel/mesh", "parallel/multihost",
+          "parallel/shard_filters"}
 
 
 def _read(root, mod):
@@ -163,9 +165,6 @@ def test_every_shared_module_name_is_accounted_for():
 RENAMED = {"models/pallas_filters": "models/filter_kernels",
            "render/filters_jax": "render/filters_torch"}
 NOT_PORTED = {
-    # the multi-device path (ROADMAP A6), queued: one card has nothing
-    # to shard
-    "parallel/mesh", "parallel/multihost", "parallel/shard_filters",
     # picks a JAX backend; the port names its device in config
     "utils/device",
     # test infrastructure: ctypes to the system libjxl, which no codec
@@ -206,7 +205,8 @@ def test_no_jax_or_reference_imports():
     rel = {os.path.relpath(f, PORT)[:-3].replace(os.sep, "/") for f in files}
     assert {"metrics/butteraugli", "models/vardct_heuristics",
             "models/vardct_transform", "models/vardct_loop",
-            "vardct/enc_roundtrip", "graft_entry"} <= rel
+            "vardct/enc_roundtrip", "graft_entry", "parallel/mesh",
+            "parallel/shard_filters", "parallel/multihost"} <= rel
     assert set(VERBATIM) | set(EDITED) <= rel
     for path in files:
         bad = {m for m in _imports(path)
