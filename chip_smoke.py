@@ -1290,6 +1290,13 @@ def e7_first_pass_check(dev, card: str, name: str, img, d: float,
     return out
 
 
+def _prof_stages(prof) -> dict:
+    """The recorder's spans since the last drain, as {name: (total s,
+    self s, calls)}."""
+    return {k: (round(t, 4), round(own, 4), n)
+            for k, (t, own, n) in prof.totals(prof.drain()).items()}
+
+
 def phase_lossy_e7(dev, card: str, photos: list, workers: int) -> tuple:
     """The effort 5-7 VarDCT encode on the card (E7_JOBS): photos 0 and 1
     at d1 e7 through ``encode_lossy_many``, the others through
@@ -1334,19 +1341,19 @@ def phase_lossy_e7(dev, card: str, photos: list, workers: int) -> tuple:
         [imgs[n] for n in pair], opts[pair[0]], workers=workers,
         device=dev)))
     t_cold = time.perf_counter() - t0
-    prof.enabled = True
+    prof.enable(True)
     stages = {}
     try:
         for name, _, _, _, d, e in E7_JOBS:
             if name in pair:
                 continue
-            prof.reset()
+            prof.drain()
             t0 = time.perf_counter()
             streams[name] = encode_lossy(imgs[name], opts[name], device=dev)
             stages[name] = dict(seconds=time.perf_counter() - t0,
-                                **prof.report())
+                                **_prof_stages(prof))
     finally:
-        prof.enabled = False
+        prof.enable(False)
     counts = _filter_counts()
     got = [counts["gaborish"]] + counts["epf_passes"]
     want = [sum(x) for x in zip(*(
@@ -1360,7 +1367,7 @@ def phase_lossy_e7(dev, card: str, photos: list, workers: int) -> tuple:
         raise AssertionError(f"e7 phase: filter launches {got}, want {want}")
     for name, st in stages.items():
         print(f"e7 phase {name}: {st.pop('seconds')} s alone; prof stages "
-              f"(s, calls): {st}, on {card}", flush=True)
+              f"(s, self s, calls): {st}, on {card}", flush=True)
 
     rates = []
     for _ in range(3):
@@ -1375,14 +1382,14 @@ def phase_lossy_e7(dev, card: str, photos: list, workers: int) -> tuple:
           f"{workers} threads): cold {mp / t_cold} MP/s, warm {rates} MP/s "
           f"(median {statistics.median(rates)}, spread {min(rates)}-"
           f"{max(rates)}), on {card}", flush=True)
-    prof.enabled = True
-    prof.reset()
+    prof.enable(True)
+    prof.drain()
     t0 = time.perf_counter()
     encode_lossy(imgs[pair[0]], opts[pair[0]], device=dev)
-    rep = prof.report()
-    prof.enabled = False
+    rep = _prof_stages(prof)
+    prof.enable(False)
     print(f"e7 phase photo0_d1_e7 alone: {time.perf_counter() - t0} s; prof "
-          f"stages (s, calls): {rep}, on {card}", flush=True)
+          f"stages (s, self s, calls): {rep}, on {card}", flush=True)
     _profile(lambda: encode_lossy(imgs[pair[0]], opts[pair[0]], device=dev),
              card, "warm e7 encode of photo0_d1_e7")
 

@@ -922,13 +922,62 @@ def _device_decode_inputs(data: bytes):
     filters, bit depth, and for a var frame "var" and its strategy
     classes). Returns None when the stream needs the general path
     (features, extra channels, AC tables other than the defaults, ...)."""
-    from libjxl_torch.api.container import extract_codestream
-    from libjxl_torch.models.vardct_decode import FrameRecon, FrameReconVar
-    from libjxl_torch.utils import native
-    from libjxl_torch.vardct.frame_dec import VarDCTFrameDecoder
+    from libjxl_torch.utils import native, prof
 
     if not native.available():
         return None
+    with prof.stage("host.parse"):
+        parsed = _parse_for_device(data)
+    if parsed is None:
+        return None
+    dec, fh, meta, sections = parsed
+    yb, xb = dec.fd.ysize_blocks, dec.fd.xsize_blocks
+    lf = fh.loop_filter
+    key = (meta.ysize, meta.xsize, yb, xb, bool(lf.gab), int(lf.epf_iters),
+           meta.m.bit_depth.bits_per_sample)
+    is_var = bool((dec.acs_raw[dec.acs_anchor] != 0).any())
+    with prof.stage("host.ac_decode", groups=len(sections),
+                    threads=_native_ac_threads(len(sections))):
+        # all-8x8 stream: the native decoder emits (flat idx, value)
+        # pairs directly — no dense (3, yb, xb, 64) buffer, no
+        # sparsify rescan (halves the stage's memory traffic)
+        sparse_pairs = None if is_var else dec.decode_ac_frame_native(
+            sections, sparse=True)
+        dense_buf = groups = None
+        if sparse_pairs is None:
+            dense_buf = None if is_var else np.zeros((3, yb, xb, 64),
+                                                     np.int32)
+            # all AC sections in ONE native call (std::threads over
+            # groups)
+            groups = dec.decode_ac_frame_native(sections,
+                                                dense_buf=dense_buf)
+            if groups is None:
+                return None
+    if dec.mfd.full_image is not None and dec.mfd.full_image.channel:
+        return None
+    with prof.stage("host.stage_out"):
+        return _frame_recon(dec, fh, meta, key, lf, is_var, sparse_pairs,
+                            dense_buf, groups)
+
+
+def _native_ac_threads(n_groups: int) -> int:
+    """The threads ``decode_ac_frame_native`` starts for ``n_groups``
+    when left to choose (its rule: one on a thread other than the
+    main one, else one a group up to the cores)."""
+    import os
+    import threading
+    if threading.current_thread() is not threading.main_thread():
+        return 1
+    return min(n_groups, os.cpu_count() or 1)
+
+
+def _parse_for_device(data: bytes):
+    """The codestream parse of ``_device_decode_inputs`` through the AC
+    global section: (decoder, frame header, metadata, AC sections), or
+    None where the stream needs the general path."""
+    from libjxl_torch.api.container import extract_codestream
+    from libjxl_torch.vardct.frame_dec import VarDCTFrameDecoder
+
     meta, frames = parse_codestream(extract_codestream(data))
     if len(frames) != 1:
         return None
@@ -950,7 +999,6 @@ def _device_decode_inputs(data: bytes):
     dec = VarDCTFrameDecoder(fh, meta.m, fd)
     if not dec.is_444:
         return None
-    yb, xb = fd.ysize_blocks, fd.xsize_blocks
     if frame.partial or any(s is None for s in frame.sections):
         return None
     if len(frame.sections) == 1:
@@ -977,23 +1025,17 @@ def _device_decode_inputs(data: bytes):
     # the whole batch): a stream that signals its own goes to the host
     if not dec.matrices.encodings_default:
         return None
-    lf = fh.loop_filter
-    key = (meta.ysize, meta.xsize, yb, xb, bool(lf.gab), int(lf.epf_iters),
-           bits)
-    is_var = bool((dec.acs_raw[dec.acs_anchor] != 0).any())
-    # all-8x8 stream: the native decoder emits (flat idx, value)
-    # pairs directly — no dense (3, yb, xb, 64) buffer, no
-    # sparsify rescan (halves the stage's memory traffic)
-    sparse_pairs = None if is_var else dec.decode_ac_frame_native(
-        sections, sparse=True)
-    if sparse_pairs is None:
-        dense_buf = None if is_var else np.zeros((3, yb, xb, 64), np.int32)
-        # all AC sections in ONE native call (std::threads over groups)
-        groups = dec.decode_ac_frame_native(sections, dense_buf=dense_buf)
-        if groups is None:
-            return None
-    if dec.mfd.full_image is not None and dec.mfd.full_image.channel:
-        return None
+    return dec, fh, meta, sections
+
+
+def _frame_recon(dec, fh, meta, key, lf, is_var, sparse_pairs, dense_buf,
+                 groups):
+    """The staging arrays of ``_device_decode_inputs`` from the decoded
+    AC: (FrameRecon or FrameReconVar, batch key, loop filter), or None
+    for absurd coefficients."""
+    from libjxl_torch.models.vardct_decode import FrameRecon, FrameReconVar
+    from libjxl_torch.utils import native
+
     x_dm = (1 / 1.25) ** (fh.x_qm_scale - 2.0)
     b_dm = (1 / 1.25) ** (fh.b_qm_scale - 2.0)
     if is_var:
@@ -1124,6 +1166,15 @@ def decode_many(streams, workers: int | None = None, device=None,
 
     With ``fetch=False`` a device frame is returned as its (h, w, 3)
     device tensor (see ``decode_frames_device``)."""
+    from libjxl_torch.utils import prof
+
+    if not streams:
+        return []
+    with prof.stage("decode_many", streams=len(streams)):
+        return _decode_many(streams, workers, device, fetch)
+
+
+def _decode_many(streams, workers, device, fetch: bool) -> list:
     import os
 
     from libjxl_torch.config import resolve_device
@@ -1132,12 +1183,12 @@ def decode_many(streams, workers: int | None = None, device=None,
     )
     from libjxl_torch.parallel import host_pool
     from libjxl_torch.render.filters_torch import lf_key
+    from libjxl_torch.utils import prof
 
-    if not streams:
-        return []
     device = resolve_device(device)
     workers = workers or os.cpu_count() or 1
-    prepped = host_pool.map_decode_inputs(streams, workers)
+    with prof.stage("decode_many.host_wait", streams=len(streams)):
+        prepped = host_pool.map_decode_inputs(streams, workers)
     # frames of one shape, filters, loop-filter constants and bit depth
     # go together; var frames of different strategy classes too (each
     # class runs over the chunk)
@@ -1157,34 +1208,40 @@ def decode_many(streams, workers: int | None = None, device=None,
         pending = []
         for c0 in range(0, len(idxs), chunk_n):
             chunk = idxs[c0:c0 + chunk_n]
-            pending.append((chunk, fn(
-                [prepped[i][0] for i in chunk], lf, gab, epf_iters, h, w,
-                maxval=(1 << bits) - 1, device=device, fetch=False)))
+            with prof.stage("decode_many.device", frames=len(chunk)):
+                pending.append((chunk, fn(
+                    [prepped[i][0] for i in chunk], lf, gab, epf_iters, h,
+                    w, maxval=(1 << bits) - 1, device=device, fetch=False)))
             decode_many.device_frames += len(chunk)
         for chunk, out in pending:
             if fetch:
-                out = out.cpu().numpy()
+                with prof.stage("decode_many.fetch",
+                                bytes=out.numel() * out.element_size()):
+                    out = out.cpu().numpy()
                 if bits > 8:
                     out = out.view(np.uint16)
             for j, i in enumerate(chunk):
                 results[i] = out[j]
     rest = [i for i, p in enumerate(prepped) if p is None]
-    # a stream with a frame whose filters the policy puts on the card
-    # decodes in this process, on ``device``, on threads (as the
-    # reference decodes all of these); the others on the pool, whose
-    # workers hide the card and filter on the host
-    here = [i for i in rest if _stream_filters_on_device(streams[i])]
-    pooled = [i for i in rest if i not in here]
-    host = host_pool.get_pool(workers).map(
-        decode, [streams[i] for i in pooled]) if pooled else ()
-    if here:
-        from concurrent.futures import ThreadPoolExecutor
-        with ThreadPoolExecutor(min(len(here), workers)) as ex:
-            for i, o in zip(here, ex.map(
-                    lambda i: decode(streams[i], device=device), here)):
-                results[i] = o
-    for i, o in zip(pooled, host):
-        results[i] = o
+    if not rest:
+        return results
+    with prof.stage("decode_many.host_fallback", streams=len(rest)):
+        # a stream with a frame whose filters the policy puts on the card
+        # decodes in this process, on ``device``, on threads (as the
+        # reference decodes all of these); the others on the pool, whose
+        # workers hide the card and filter on the host
+        here = [i for i in rest if _stream_filters_on_device(streams[i])]
+        pooled = [i for i in rest if i not in here]
+        host = host_pool.get_pool(workers).map(
+            decode, [streams[i] for i in pooled]) if pooled else ()
+        if here:
+            from concurrent.futures import ThreadPoolExecutor
+            with ThreadPoolExecutor(min(len(here), workers)) as ex:
+                for i, o in zip(here, ex.map(
+                        lambda i: decode(streams[i], device=device), here)):
+                    results[i] = o
+        for i, o in zip(pooled, host):
+            results[i] = o
     return results
 
 

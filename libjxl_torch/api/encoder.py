@@ -60,7 +60,7 @@ from libjxl_torch.modular.image import Channel, ModularImage
 from libjxl_torch.modular.predict import PREDICTOR_GRADIENT
 from libjxl_torch.modular.transforms import Transform, TransformId, fwd_rct
 from libjxl_torch.modular.tree import TreeNode, write_tree
-from libjxl_torch.utils import native
+from libjxl_torch.utils import native, prof
 from libjxl_torch.utils.bits import BitWriter
 
 
@@ -1068,7 +1068,9 @@ def encode_lossless_many(images, options: EncodeOptions | None = None,
         return [encode_lossless(im, options) for im in images]
     device = resolve_device(device)
     imgs = [_hwc(im) for im in images]
-    if options.entropy != "prefix-device":
+    with prof.stage("encode_lossless_many", images=len(imgs)):
+        if options.entropy == "prefix-device":
+            return _encode_prefix_many(imgs, options, device)
         group_dim = 128 << options.group_size_shift
         handles = [encode_image_device_dispatch(
             im, group_dim, options.use_rct and im.shape[2] >= 3, device)
@@ -1077,6 +1079,9 @@ def encode_lossless_many(images, options: EncodeOptions | None = None,
             im, options, encode_image_device_collect(hd))
             for im, hd in zip(imgs, handles)]
 
+
+def _encode_prefix_many(imgs: list, options: EncodeOptions, device) -> list:
+    """``encode_lossless_many``'s prefix-device path."""
     def key(i):
         return imgs[i].shape, str(imgs[i].dtype)
 
@@ -1089,35 +1094,53 @@ def encode_lossless_many(images, options: EncodeOptions | None = None,
                              for j in range(0, len(idxs), per)])
     out: list = [None] * len(imgs)
     native_lib()
+    ctx = prof.context()
     # host splicing of sub-batch k overlaps the device work of k+1
     with ThreadPoolExecutor(2) as pool:
         pending = []
         for batches in shape_groups:
             part0 = [imgs[i] for i in batches[0]]
-            staged0 = _prefix_upload(part0, options, device)
+            with prof.stage("encode.upload", images=len(part0)):
+                staged0 = _prefix_upload(part0, options, device)
             groups0, dims = staged0
-            payload = lossless_hist_device(
-                groups0, dims["h"], dims["w"], gx=dims["gx"],
-                per_image=dims["per_image"] if len(part0) > 1 else 0)
-            cst = _prefix_code_state(payload.cpu().numpy(),
-                                     tuple(groups0.shape), part0[0].dtype)
+            with prof.stage("encode.probe", images=len(part0)):
+                payload = lossless_hist_device(
+                    groups0, dims["h"], dims["w"], gx=dims["gx"],
+                    per_image=dims["per_image"] if len(part0) > 1 else 0)
+                cst = _prefix_code_state(payload.cpu().numpy(),
+                                         tuple(groups0.shape),
+                                         part0[0].dtype)
             if cst["resid_better"]:
                 for k, part in enumerate(batches):
-                    st = _prefix_pass2(_prefix_pass1(
-                        [imgs[i] for i in part], options, device,
-                        staged0 if k == 0 else None))
-                    pending.append((part, pool.submit(_prefix_assemble, st)))
+                    with prof.stage("encode.device", images=len(part)):
+                        st = _prefix_pass2(_prefix_pass1(
+                            [imgs[i] for i in part], options, device,
+                            staged0 if k == 0 else None))
+                    pending.append((part, pool.submit(_splice, st, ctx)))
                 continue
             lut = prefix_state_to_device(cst, device)
             for k, part in enumerate(batches):
-                st = _prefix_fused([imgs[i] for i in part], options, cst,
-                                   lut, staged0 if k == 0 else None, device)
-                pending.append((part, pool.submit(_prefix_assemble, st)))
+                with prof.stage("encode.device", images=len(part)):
+                    st = _prefix_fused([imgs[i] for i in part], options, cst,
+                                       lut, staged0 if k == 0 else None,
+                                       device)
+                pending.append((part, pool.submit(_splice, st, ctx)))
             del staged0, groups0
-        for idxs, fut in pending:
-            for i, stream in zip(idxs, fut.result()):
-                out[i] = stream
+        with prof.stage("encode.wait"):
+            for idxs, fut in pending:
+                for i, stream in zip(idxs, fut.result()):
+                    out[i] = stream
     return out
+
+
+def _splice(st: dict, ctx) -> list:
+    """``_prefix_assemble`` on a splice thread, under a span whose parent
+    is the caller's trace context ``ctx``."""
+    with prof.stage("encode.splice", parent=ctx, images=st["n_images"],
+                    threads=_splice_threads(st["ng"])) as sp:
+        streams = _prefix_assemble(st)
+        sp.set(bytes=sum(len(s) for s in streams))
+    return streams
 
 
 def encode_lossless_device_prefix(pixels: np.ndarray,
@@ -1366,14 +1389,19 @@ def _prefix_assemble(st: dict) -> list:
     dc_section = sw.to_bytes()
     jobs = [(i, g) for i in range(st["n_images"])
             for g in range(fd.num_groups)]
-    # the native splice releases the GIL: thread across groups
-    with ThreadPoolExecutor(min(8, os.cpu_count() or 1)) as ex:
+    with ThreadPoolExecutor(_splice_threads(fd.num_groups)) as ex:
         flat = list(ex.map(lambda ig: section(gh_bytes, gh_bits, *ig),
                            jobs))
     n = fd.num_groups
     return [_stream(header_bytes, header_bits, fd, dc_section,
                     flat[i * n:(i + 1) * n])
             for i in range(st["n_images"])]
+
+
+def _splice_threads(n_groups: int) -> int:
+    """Threads of one image's splice: the native splice releases the
+    GIL, so more than one group is spliced across threads."""
+    return 1 if n_groups == 1 else min(8, os.cpu_count() or 1)
 
 
 def _assemble_lossless_device(pixels: np.ndarray, options: EncodeOptions,

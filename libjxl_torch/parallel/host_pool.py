@@ -27,24 +27,41 @@ _pool: ProcessPoolExecutor | None = None
 _pool_size = 0
 
 
-def _worker_init() -> None:
+# the trace context of the span that spawned this worker, where the
+# parent's span recorder was on (``utils/prof.py``)
+_setup_ctx: tuple | None = None
+
+
+def _worker_init(ctx: tuple | None = None) -> None:
     # The parent owns the card; workers only ever run host-side
     # numpy/C. Importing torch does not initialise CUDA, and CUDA reads
     # this variable when it first initialises, so no worker can see the
     # card. decode_many decodes every stream whose filters belong on the
     # card in the parent, so workers filter on the host at every size.
+    global _setup_ctx
     os.environ["CUDA_VISIBLE_DEVICES"] = ""
     from libjxl_torch.config import config
     config.device_filters = False
+    _setup_ctx = ctx
 
 
-def _decode_inputs_task(data: bytes):
+def _decode_inputs(data: bytes):
     from libjxl_torch.api.decoder import _device_decode_inputs
     from libjxl_torch.core.fields import FormatError
     try:
         return _device_decode_inputs(data)
     except FormatError:
         return None
+
+
+def _decode_inputs_task(data: bytes, ctx: tuple | None = None):
+    """``_device_decode_inputs`` of one stream (None: the general path).
+    With the caller's trace context ``ctx``, returns (that, this worker's
+    spans) instead."""
+    if ctx is None:
+        return _decode_inputs(data)
+    from libjxl_torch.utils import prof
+    return prof.task(ctx, "host.task", _decode_inputs, data)
 
 
 def get_pool(workers: int) -> ProcessPoolExecutor:
@@ -57,22 +74,35 @@ def get_pool(workers: int) -> ProcessPoolExecutor:
         _pool.shutdown(wait=False, cancel_futures=True)
     import multiprocessing as mp
 
-    from libjxl_torch.utils import native
+    from libjxl_torch.utils import native, prof
 
-    # one build in the parent; the workers load the built library
-    native.get_lib()
-    # spawn, not fork: the parent may hold a live CUDA context whose
-    # locks/threads do not survive fork.
-    _pool = ProcessPoolExecutor(workers, mp_context=mp.get_context("spawn"),
-                                initializer=_worker_init)
+    with prof.stage("host_pool.spawn", workers=workers):
+        # one build in the parent; the workers load the built library
+        native.get_lib()
+        # spawn, not fork: the parent may hold a live CUDA context whose
+        # locks/threads do not survive fork.
+        ctx = prof.context()
+        _pool = ProcessPoolExecutor(
+            workers, mp_context=mp.get_context("spawn"),
+            initializer=_worker_init, initargs=(ctx,) if ctx else ())
     _pool_size = workers
     return _pool
 
 
 def _warm_task(_):
-    import libjxl_torch.api.decoder  # noqa: F401  (pays the import cost)
-    from libjxl_torch.utils import native
-    native.available()             # loads the native library
+    from libjxl_torch.utils import prof
+    # under a traced parent, the span waits in this worker for the
+    # first traced task to carry it back
+    was = prof.enabled
+    prof.enable(was or _setup_ctx is not None)
+    try:
+        with prof.stage("host.import", parent=_setup_ctx):
+            # pays the import cost, and loads the native library
+            import libjxl_torch.api.decoder  # noqa: F401
+            from libjxl_torch.utils import native
+            native.available()
+    finally:
+        prof.enable(was)
     return os.getpid()
 
 
@@ -88,11 +118,21 @@ def map_decode_inputs(streams, workers: int) -> list:
 
     Returns one entry per stream (None where the stream needs the
     general path). Raises whatever the pool raises."""
+    from libjxl_torch.utils import prof
+
     pool = get_pool(workers)
     # up to 4 streams a task once every worker has two tasks (fewer
     # round trips); one a task below that, so that no worker idles
     cs = max(1, min(4, len(streams) // (2 * _pool_size)))
-    return list(pool.map(_decode_inputs_task, streams, chunksize=cs))
+    ctx = prof.context()
+    if ctx is None:
+        return list(pool.map(_decode_inputs_task, streams, chunksize=cs))
+    out = []
+    for res, spans in pool.map(_decode_inputs_task, streams,
+                               [ctx] * len(streams), chunksize=cs):
+        prof.extend(spans)
+        out.append(res)
+    return out
 
 
 def shutdown() -> None:

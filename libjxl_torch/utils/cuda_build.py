@@ -35,14 +35,19 @@ def nvcc_path() -> str:
                        f"{cuda_home}/bin): the CUDA kernels cannot be built")
 
 
-def build(name: str) -> tuple[str, str]:
-    """Compile ``csrc/<name>.cu`` unless an up-to-date build exists.
-    Returns (shared library path, nvcc's -Xptxas -v report)."""
+def _paths(name: str) -> tuple[str, str]:
+    """(source, shared library) of ``csrc/<name>.cu``."""
     src = os.path.join(CSRC_DIR, name + ".cu")
     with open(src, "rb") as f:
         key = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()
                              ).hexdigest()[:16]
-    so_path = os.path.join(BUILD_DIR, f"{name}_{key}.so")
+    return src, os.path.join(BUILD_DIR, f"{name}_{key}.so")
+
+
+def build(name: str) -> tuple[str, str]:
+    """Compile ``csrc/<name>.cu`` unless an up-to-date build exists.
+    Returns (shared library path, nvcc's -Xptxas -v report)."""
+    src, so_path = _paths(name)
     log_path = so_path + ".log"
     if not os.path.exists(so_path):
         os.makedirs(BUILD_DIR, exist_ok=True)
@@ -60,8 +65,12 @@ def build(name: str) -> tuple[str, str]:
 
 def load(name: str) -> ctypes.CDLL:
     """The built library of ``csrc/<name>.cu``, built on first call."""
+    from libjxl_torch.utils import prof
+
     with _lock:
         lib = _loaded.get(name)
         if lib is None:
-            lib = _loaded[name] = ctypes.CDLL(build(name)[0])
+            built = not os.path.exists(_paths(name)[1])
+            with prof.stage("cuda_build." + name, built=int(built)):
+                lib = _loaded[name] = ctypes.CDLL(build(name)[0])
         return lib

@@ -34,7 +34,7 @@ modular/image modular/predict modular/transforms modular/tree
 parallel/runner render/blending render/enc_dots render/enc_downsample
 render/enc_noise render/enc_patches render/noise render/patches
 render/splines render/upsample render/upsample_weights utils/bits
-utils/debug utils/prof vardct/ac_context vardct/ac_strategy
+utils/debug vardct/ac_context vardct/ac_strategy
 vardct/adaptive_quant vardct/afv_basis vardct/cfl vardct/coeff_order
 vardct/dct vardct/enc_acs vardct/enc_transforms_small vardct/frame_dec
 vardct/quant_tables_data vardct/transforms_small
@@ -66,6 +66,10 @@ EDITED = {
     "render/pipeline": ({"DeviceRestoreStage", "BandedDeviceRestoreStage",
                          "build_render_pipeline"}, set()),
     "utils/native": ({"_build", "get_lib"}, set()),
+    # the port's span recorder: ``stage`` records thread-local spans on
+    # the profiler's clock, ``dump`` prints totals computed from them;
+    # the stage timer's shared totals (``reset``, ``report``) are gone
+    "utils/prof": ({"stage", "dump"}, {"reset", "report"}),
     # the port's device-filter policy does not look at a JAX backend
     "config": ({"RuntimeConfig", "device_filters_enabled"}, set()),
     # workers hide the CUDA card instead of pinning jax to the CPU, the
