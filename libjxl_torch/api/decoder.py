@@ -915,13 +915,14 @@ def _blend_frame(canvas, img, fh, x0, y0, meta, refs=None):
     return out
 
 
-def _device_decode_inputs(data: bytes):
+def _device_decode_inputs(data: bytes, alloc=None):
     """Host half of the device decode: parse + native entropy decode one
     stream into a FrameRecon (all-DCT8) or a FrameReconVar (variable
     block sizes; models/vardct_decode.py), plus the batch key (shape,
     filters, bit depth, and for a var frame "var" and its strategy
     classes). Returns None when the stream needs the general path
-    (features, extra channels, AC tables other than the defaults, ...)."""
+    (features, extra channels, AC tables other than the defaults, ...).
+    ``alloc`` places the staging arrays (see ``_frame_recon``)."""
     from libjxl_torch.utils import native, prof
 
     if not native.available():
@@ -957,7 +958,7 @@ def _device_decode_inputs(data: bytes):
         return None
     with prof.stage("host.stage_out"):
         return _frame_recon(dec, fh, meta, key, lf, is_var, sparse_pairs,
-                            dense_buf, groups)
+                            dense_buf, groups, alloc)
 
 
 def _native_ac_threads(n_groups: int) -> int:
@@ -1029,24 +1030,38 @@ def _parse_for_device(data: bytes):
 
 
 def _frame_recon(dec, fh, meta, key, lf, is_var, sparse_pairs, dense_buf,
-                 groups):
+                 groups, alloc=None):
     """The staging arrays of ``_device_decode_inputs`` from the decoded
     AC: (FrameRecon or FrameReconVar, batch key, loop filter), or None
-    for absurd coefficients."""
-    from libjxl_torch.models.vardct_decode import FrameRecon, FrameReconVar
-    from libjxl_torch.utils import native
+    for absurd coefficients.
 
+    A var frame's strategy classes are counted and then written by the
+    native passes of ``utils/host_stage.py`` (``_var_classes`` is their
+    plain twin). ``alloc(specs)`` gives the empty arrays the staging is
+    written into, one a (shape, dtype) of ``specs``: the pool's workers
+    lay them out in a shared-memory segment (``parallel/host_pool.py``);
+    without it each is a new array."""
+    from libjxl_torch.models.vardct_decode import FrameRecon, FrameReconVar
+    from libjxl_torch.utils import host_stage, native
+
+    alloc = alloc or _new_arrays
     x_dm = (1 / 1.25) ** (fh.x_qm_scale - 2.0)
     b_dm = (1 / 1.25) ** (fh.b_qm_scale - 2.0)
+    frame = [dec.dc.astype(np.float32), dec.raw_quant, dec.epf_sharpness,
+             dec.cmap.ytox_ratio_arr(dec.ytox_map),
+             dec.cmap.ytob_ratio_arr(dec.ytob_map)]
     if is_var:
-        classes = _var_classes([groups[g] for g in sorted(groups)],
-                               dec.raw_quant)
+        counts = host_stage.count_classes(
+            [groups[g] for g in sorted(groups)])
+        specs = counts.specs()
+        out = alloc(specs + _specs(frame))
+        classes = host_stage.fill_classes(counts, dec.raw_quant,
+                                          out[:len(specs)])
+        dc, raw_quant, sharpness, x_cc, b_cc = _copy_into(
+            frame, out[len(specs):])
         fr = FrameReconVar(
-            classes=classes,
-            dc=dec.dc.astype(np.float32),
-            raw_quant=dec.raw_quant, sharpness=dec.epf_sharpness,
-            x_cc=dec.cmap.ytox_ratio_arr(dec.ytox_map),
-            b_cc=dec.cmap.ytob_ratio_arr(dec.ytob_map),
+            classes=classes, dc=dc, raw_quant=raw_quant, sharpness=sharpness,
+            x_cc=x_cc, b_cc=b_cc,
             inv_gs=np.float32(dec.quantizer.inv_global_scale),
             dms=np.asarray([x_dm, 1.0, b_dm], np.float32),
             quant_scale=np.float32(dec.quantizer.scale),
@@ -1058,14 +1073,17 @@ def _frame_recon(dec, fh, meta, key, lf, is_var, sparse_pairs, dense_buf,
         nz, vals = native.sparsify_i32(dense_buf)
     if len(vals) and np.abs(vals).max() > 32767:
         return None           # host path for absurd coefficients
+    leaves = [vals.astype(np.int16), nz] + frame
+    vals, nz, dc, raw_quant, sharpness, x_cc, b_cc = _copy_into(
+        leaves, alloc(_specs(leaves)))
     fr = FrameRecon(
-        coeff_vals=vals.astype(np.int16),
+        coeff_vals=vals,
         coeff_idx=nz,
-        dc=dec.dc.astype(np.float32),
-        raw_quant=dec.raw_quant,
-        sharpness=dec.epf_sharpness,
-        x_cc=dec.cmap.ytox_ratio_arr(dec.ytox_map),
-        b_cc=dec.cmap.ytob_ratio_arr(dec.ytob_map),
+        dc=dc,
+        raw_quant=raw_quant,
+        sharpness=sharpness,
+        x_cc=x_cc,
+        b_cc=b_cc,
         inv_gs=np.float32(dec.quantizer.inv_global_scale),
         dms=np.asarray([x_dm, 1.0, b_dm], np.float32),
         table=dec.matrices.table_for_strategy(0).reshape(3, 64).astype(
@@ -1074,6 +1092,21 @@ def _frame_recon(dec, fh, meta, key, lf, is_var, sparse_pairs, dense_buf,
         intensity=np.float32(meta.m.tone_mapping.intensity_target),
     )
     return fr, key, lf
+
+
+def _new_arrays(specs: list) -> list:
+    return [np.empty(shape, dtype) for shape, dtype in specs]
+
+
+def _specs(arrays: list) -> list:
+    return [(a.shape, a.dtype) for a in arrays]
+
+
+def _copy_into(arrays: list, out: list) -> list:
+    """``out``, each filled with the array of ``arrays`` at its place."""
+    for a, o in zip(arrays, out, strict=True):
+        o[...] = a
+    return out
 
 
 def _var_classes(runs: list, raw_quant: np.ndarray) -> dict:

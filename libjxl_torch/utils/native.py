@@ -27,11 +27,14 @@ _lib = None
 _lock = threading.Lock()
 
 
-def _build() -> str:
+def _build(src_path: str | None = None, stem: str = "jxl_host") -> str:
+    """Build ``src_path`` (default ``native/jxl_host.cc``) into
+    ``<stem>_<key>.so`` unless it is built; returns the path."""
     # Cache key includes the machine + compiler identity: -march=native
     # binaries are CPU-specific, and a stale/foreign .so must never be
     # dlopened just because the source hash matches.
-    with open(_SRC, "rb") as f:
+    src_path = src_path or _SRC
+    with open(src_path, "rb") as f:
         src = f.read()
     import platform
     cxx_id = subprocess.run(["g++", "--version"], capture_output=True,
@@ -39,18 +42,18 @@ def _build() -> str:
     key = hashlib.sha256(src + cxx_id + platform.platform().encode() +
                          platform.processor().encode()).hexdigest()[:16]
     os.makedirs(_BUILD_DIR, exist_ok=True)
-    so_path = os.path.join(_BUILD_DIR, f"jxl_host_{key}.so")
-    with open(os.path.join(_BUILD_DIR, "jxl_host.lock"), "w") as lock:
+    so_path = os.path.join(_BUILD_DIR, f"{stem}_{key}.so")
+    with open(os.path.join(_BUILD_DIR, f"{stem}.lock"), "w") as lock:
         fcntl.flock(lock, fcntl.LOCK_EX)
         if os.path.exists(so_path):
             return so_path
         tmp = f"{so_path}.{os.getpid()}.tmp"
         cmd = ["g++", "-O3", "-march=native", "-shared", "-fPIC",
-               "-std=c++17", "-pthread", _SRC, "-o", tmp]
+               "-std=c++17", "-pthread", src_path, "-o", tmp]
         proc = subprocess.run(cmd, capture_output=True, text=True,
                               timeout=300)
         if proc.returncode != 0:
-            raise RuntimeError(f"native build of {_SRC} failed:\n"
+            raise RuntimeError(f"native build of {src_path} failed:\n"
                                f"{proc.stderr}")
         os.replace(tmp, so_path)
     return so_path

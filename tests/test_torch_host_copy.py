@@ -48,10 +48,13 @@ metrics/ssimulacra2 params utils/brotli
 # differs, top-level names dropped); every other name is the original's
 EDITED = {
     # decode() and decode_rows() take the device of their filters, and
-    # a device-resident frame is fetched with torch
+    # a device-resident frame is fetched with torch; _frame_recon stages
+    # a var frame's classes by the native passes of utils/host_stage.py
+    # into arrays its caller places (_var_classes is their plain twin)
     "api/decoder": ({"decode_vardct_frame", "decode_rows",
                      "_device_decode_inputs", "_decode_unoriented",
-                     "decode_many", "decode", "_frame_to_float"},
+                     "decode_many", "decode", "_frame_to_float",
+                     "_frame_recon"},
                     {"_try"}),
     "api/encoder": ({"encode_lossless", "encode_lossless_device",
                      "encode_lossless_many", "encode_lossless_device_prefix",
@@ -75,10 +78,12 @@ EDITED = {
     # workers hide the CUDA card instead of pinning jax to the CPU, the
     # native library is built before the spawn, a pool of another size
     # is made anew, a pool failure raises, and the caller always names
-    # the number of workers
+    # the number of workers; results come back in shared-memory
+    # segments (_Segment, _receive) that shutdown and the start sweep
     "parallel/host_pool": ({"_worker_init", "_decode_inputs_task",
                             "get_pool", "_warm_task", "warm",
-                            "map_decode_inputs"}, {"default_workers"}),
+                            "map_decode_inputs", "shutdown", "_Segment",
+                            "_receive", "_sweep"}, {"default_workers"}),
     # the device branches call the port's device programs on
     # ``device``, which the iterated encode and the EPF sharpness search
     # pass on to their scorers (and the legacy loop to decode());
