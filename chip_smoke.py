@@ -28,6 +28,13 @@ Drives the port's two main paths through their entry points:
   auto bit for bit equal to ``decode_rows`` on the card;
 * ``decode_many`` of two 4K streams its device program does not take
   (progressive), whose filters go to the card in this process;
+* ``decode_many`` of the benchmark's recompressed JPEGs
+  (``phase_jpeg420``): 8 4032x3024 4:2:0 streams at qualities 75-95,
+  made from ``jxlbench/corpus/jpeg420``'s seed and held to its
+  manifest's sha256, every frame on the JPEG route in one chunk; the
+  YCbCr kernel (``csrc/ycbcr.cu``) counted from 0 over that call and
+  held bit for bit to its plain version on that call's own planes, with
+  both times and the bound at their shapes;
 * the VarDCT lossy encode ``libjxl_torch.vardct.frame_enc.
   encode_lossy_many(imgs, LossyOptions(distance=1.0, effort=3,
   use_device=True))`` on the 8 4K photos, plus ``encode_lossy`` of a
@@ -77,7 +84,8 @@ rate), its host decode check, the two decode batches (each with launch
 counts, the chunks handed to the device, the batch rate, the host-stage
 and the device-only time; the var batch also with one ``torch.profiler``
 run), their host decode check, the host stage alone on the pool and on
-threads, ``decode()`` on the card (launch counts per header and band
+threads, the recompressed JPEGs (the kernel's launches, its time and
+its plain version's), ``decode()`` on the card (launch counts per header and band
 window, times next to the host filters'), the host-routed
 ``decode_many`` (launches, time on threads against one ``decode`` after
 another), the lossy encode (the batch rate, the device program's time,
@@ -93,7 +101,8 @@ that neither JAX nor the JAX package was imported. The later phases
 print how far into the run they ended. The last two lines are the kernels' JSON
 record and ``{"ok": true, "device": ...}``. Any failure raises and exits
 non-zero before those lines. The script reaches the codec only through
-``libjxl_torch`` (and ``bench.make_image`` for its photos).
+``libjxl_torch`` (and ``bench.make_image`` for its photos,
+``jxlbench/corpus/make_set.py`` for the recompressed JPEGs).
 
 Run from the repository root, on a machine with a CUDA card:
 
@@ -103,6 +112,8 @@ Run from the repository root, on a machine with a CUDA card:
 and the filter kernels against their plain versions, and prints their
 records as one JSON line (no main path, no ``ok`` line): copied into
 another checkout, it times that checkout's kernels on the same card.
+``python3 chip_smoke.py --jpeg`` runs only the environment, the build
+and ``phase_jpeg420``, and prints its record likewise.
 ``--multiprocess-worker`` is the multi-device phase's own use.
 """
 
@@ -124,6 +135,10 @@ PACK_REPLACES = "libjxl_tpu/models/pack_kernel.py:53"
 FILTERS_SOURCE = "libjxl_torch/csrc/filters.cu"
 GAB_REPLACES = "libjxl_tpu/models/pallas_filters.py:72"
 EPF_REPLACES = "libjxl_tpu/models/pallas_filters.py:85"
+YCBCR_SOURCE = "libjxl_torch/csrc/ycbcr.cu"
+# no Pallas kernel: the JAX package upsamples and converts on the host
+YCBCR_REPLACES = "libjxl_tpu/color/xyb.py chroma_upsample, ycbcr_to_rgb"
+JPEG_SET = os.path.join("jxlbench", "corpus", "jpeg420")
 FIXTURES = os.path.join("tests", "data", "torch_vardct")
 VAR_FIXTURES = os.path.join("tests", "data", "torch_vardct_var")
 # the JPEGs the CLI phase recompresses (made with PIL elsewhere)
@@ -348,6 +363,89 @@ def phase_filters(dev, card: str) -> dict:
     del big, small
     torch.cuda.empty_cache()
     return out
+
+
+def phase_jpeg420(dev, card: str) -> dict:
+    """``decode_many`` of the recompressed-JPEG set on the card (see the
+    module's docstring). Returns the YCbCr kernel's record."""
+    import torch
+
+    from jxlbench.corpus.make_set import setup_streams
+    from libjxl_torch.api.decoder import decode_many
+    from libjxl_torch.models import ycbcr_kernel as yk
+
+    t0 = time.perf_counter()
+    streams = list(setup_streams(JPEG_SET, os.cpu_count() or 1).values())
+    print(f"jpeg420: {len(streams)} streams made in "
+          f"{time.perf_counter() - t0} s, each equal to its sha256",
+          flush=True)
+    decode_many(streams[:1], device=dev)     # the pool and the kernel
+    kernel, seen = yk.ycbcr420_to_rgb8, []
+
+    def spy(y, cb, cr, h, w):
+        seen.append((y.clone(), cb.clone(), cr.clone(), h, w))
+        return kernel(y, cb, cr, h, w)
+
+    # the kernel counts its launches on the module's name, here the spy
+    spy.launches = 0
+    frames0 = decode_many.jpeg_frames
+    yk.ycbcr420_to_rgb8 = spy
+    try:
+        t0 = time.perf_counter()
+        outs = decode_many(streams, device=dev)
+        t_call = time.perf_counter() - t0
+    finally:
+        yk.ycbcr420_to_rgb8 = kernel
+    launches, frames = spy.launches, decode_many.jpeg_frames - frames0
+    if frames != len(streams) or launches != 1 or len(seen) != 1:
+        raise AssertionError(f"jpeg420: {frames} frames on the JPEG route, "
+                             f"{launches} YCbCr launches, want "
+                             f"{len(streams)} and 1")
+    y, cb, cr, h, w = seen[0]
+    got = kernel(y, cb, cr, h, w)
+    plain = yk.ycbcr420_to_rgb8_ref(y, cb, cr, h, w)
+    torch.cuda.synchronize()
+    err = int((got.int() - plain.int()).abs().max())
+    if not torch.equal(got, plain):
+        raise AssertionError(f"jpeg420: YCbCr kernel != plain version (max "
+                             f"abs err {err})")
+    if not np.array_equal(got.cpu().numpy(), np.stack(outs)):
+        raise AssertionError("jpeg420: decode_many's outputs are not the "
+                             "kernel's")
+    ms = _time_ms(lambda: kernel(y, cb, cr, h, w), 50)
+    plain_ms = _time_ms(lambda: yk.ycbcr420_to_rgb8_ref(y, cb, cr, h, w), 5)
+    k, ch, cw = y.shape[0], -(-h // 2), -(-w // 2)
+    # Y read (4 B), both chroma planes read at their visible size (4 B
+    # each), RGB8 written (3 B); 24 flop a pixel
+    nbytes = k * (7 * h * w + 8 * ch * cw)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 24 * k * h * w / FP32_FLOPS * 1e3
+    rec = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+               bound_ms=max(t_bytes, t_ops),
+               bound_by="bytes" if t_bytes >= t_ops else "operations",
+               library_ms=None)
+    rec["bound_share"] = rec["bound_ms"] / ms
+    mp = k * h * w / 1e6
+    print(f"jpeg420 decode_many: {k} x {w}x{h} in {t_call} s ({mp / t_call} "
+          f"MP/s, the first call of 8), {frames} JPEG frames, {launches} "
+          f"YCbCr launch; kernel == plain (tolerance: exact) on that "
+          f"call's planes: kernel {ms} ms, plain {plain_ms} ms, bound "
+          f"{rec['bound_ms']} ms ({nbytes} bytes -> {t_bytes} ms, 24 "
+          f"flop/px -> {t_ops} ms, {rec['bound_share']} of the kernel "
+          f"time); library: none, on {card}", flush=True)
+    del seen, y, cb, cr, got, plain
+    torch.cuda.empty_cache()
+    return dict(rec, launches=launches, frames=frames)
+
+
+def ycbcr_record(rec: dict) -> dict:
+    """The kernels-line record of the YCbCr kernel."""
+    rec = dict(rec)
+    launches = rec.pop("launches")
+    rec.pop("frames")
+    return dict(name="ycbcr420", route="cuda", source=YCBCR_SOURCE,
+                replaces=YCBCR_REPLACES, launches=launches,
+                paths={"jpeg420 decode_many": launches}, **rec)
 
 
 def load_fixtures(directory: str) -> tuple[dict, dict]:
@@ -2187,11 +2285,17 @@ def main() -> None:
         print(json.dumps({"filters": filter_records(
             phase_filters(dev, card), {})}), flush=True)
         return
+    if sys.argv[1:] == ["--jpeg"]:
+        build_kernels(("ycbcr",))
+        print(json.dumps({"kernels": [ycbcr_record(
+            phase_jpeg420(dev, card))]}), flush=True)
+        host_pool.shutdown()
+        return
     if sys.argv[1:]:
         sys.exit(f"chip_smoke: unknown arguments {sys.argv[1:]}")
 
     # 2. build: one nvcc per kernel source, all started together
-    build_kernels(("pack_kernel", "filters"))
+    build_kernels(("pack_kernel", "filters", "ycbcr"))
     t0 = time.perf_counter()
     native_lib()
     print(f"native host library ready ({time.perf_counter() - t0} s)",
@@ -2254,8 +2358,9 @@ def main() -> None:
     phase_host_check(batches, outputs)
     del outputs
     phase_host_stage(card, batches, workers)
+    jpeg = phase_jpeg420(dev, card)
 
-    done("the decode batches")
+    done("the decode batches and the recompressed JPEGs")
 
     # 6. decode() with its filters on the card
     counts["decode()"], autos = phase_decode_api(dev, card)
@@ -2324,7 +2429,8 @@ def main() -> None:
         dict(name="pack_chunks", route="cuda", source=PACK_SOURCE,
              replaces=PACK_REPLACES, launches=sum(pack_paths.values()),
              paths=pack_paths, **rec),
-    ] + filter_records(filters, counts)}), flush=True)
+    ] + filter_records(filters, counts) + [ycbcr_record(jpeg)]}),
+        flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -917,12 +917,14 @@ def _blend_frame(canvas, img, fh, x0, y0, meta, refs=None):
 
 def _device_decode_inputs(data: bytes, alloc=None):
     """Host half of the device decode: parse + native entropy decode one
-    stream into a FrameRecon (all-DCT8) or a FrameReconVar (variable
-    block sizes; models/vardct_decode.py), plus the batch key (shape,
-    filters, bit depth, and for a var frame "var" and its strategy
-    classes). Returns None when the stream needs the general path
-    (features, extra channels, AC tables other than the defaults, ...).
-    ``alloc`` places the staging arrays (see ``_frame_recon``)."""
+    stream into a FrameRecon (all-DCT8), a FrameReconVar (variable
+    block sizes) or a FrameReconJpeg (a recompressed JPEG's 4:2:0 YCbCr
+    frame; models/vardct_decode.py), plus the batch key (shape, filters,
+    bit depth, and for a var frame "var" and its strategy classes, for a
+    JPEG frame "jpeg420"). Returns None when the stream needs the
+    general path (features, extra channels, AC tables other than the
+    defaults on an XYB frame, ...). ``alloc`` places the staging arrays
+    (see ``_frame_recon``)."""
     from libjxl_torch.utils import native, prof
 
     if not native.available():
@@ -936,6 +938,8 @@ def _device_decode_inputs(data: bytes, alloc=None):
     lf = fh.loop_filter
     key = (meta.ysize, meta.xsize, yb, xb, bool(lf.gab), int(lf.epf_iters),
            meta.m.bit_depth.bits_per_sample)
+    if not dec.is_444:
+        return _jpeg_recon(dec, fh, key + ("jpeg420",), lf, sections, alloc)
     is_var = bool((dec.acs_raw[dec.acs_anchor] != 0).any())
     with prof.stage("host.ac_decode", groups=len(sections),
                     threads=_native_ac_threads(len(sections))):
@@ -985,8 +989,9 @@ def _parse_for_device(data: bytes):
     frame = frames[0]
     fh = frame.header
     bits = meta.m.bit_depth.bits_per_sample
+    jpeg = _jpeg_420_header(fh, bits)
     if (fh.encoding == FrameEncoding.MODULAR or
-            fh.color_transform != ColorTransform.XYB or
+            (fh.color_transform != ColorTransform.XYB and not jpeg) or
             fh.custom_size_or_origin or fh.upsampling != 1 or
             fh.passes.num_passes != 1 or
             (fh.flags & (FrameFlags.PATCHES | FrameFlags.SPLINES |
@@ -998,7 +1003,7 @@ def _parse_for_device(data: bytes):
         return None
     fd = frame.dims
     dec = VarDCTFrameDecoder(fh, meta.m, fd)
-    if not dec.is_444:
+    if not dec.is_444 and not jpeg:
         return None
     if frame.partial or any(s is None for s in frame.sections):
         return None
@@ -1022,11 +1027,66 @@ def _parse_for_device(data: bytes):
             for g in range(fd.num_groups)}
     if dec.jpeg_mode:
         return None
-    # the device dequantizes with the default AC tables (one table for
-    # the whole batch): a stream that signals its own goes to the host
+    if jpeg:
+        # a recompressed JPEG is dequantized by the stream's own (RAW)
+        # table, which each frame carries to the device (its native AC
+        # decode takes DCT8 blocks only)
+        if 0 not in getattr(dec.matrices, "raw_qtables", {}):
+            return None
+        return dec, fh, meta, sections
+    # the device dequantizes an XYB frame with the default AC tables (one
+    # table for the whole batch): a stream that signals its own goes to
+    # the host
     if not dec.matrices.encodings_default:
         return None
     return dec, fh, meta, sections
+
+
+def _jpeg_420_header(fh, bits: int) -> bool:
+    """Is ``fh`` the frame header of a recompressed JPEG that the device
+    route takes: YCbCr, chroma 4:2:0 (both chroma channels halved both
+    ways, luma whole), no Gaborish or EPF, 8-bit output. The 4:4:4
+    YCbCr frames (which may carry chroma from luma) stay on the host."""
+    cs = fh.chroma_subsampling
+    return (fh.color_transform == ColorTransform.YCBCR and bits == 8 and
+            not fh.loop_filter.gab and fh.loop_filter.epf_iters == 0 and
+            tuple(cs.hshift(c) for c in range(3)) == (1, 0, 1) and
+            tuple(cs.vshift(c) for c in range(3)) == (1, 0, 1))
+
+
+def _jpeg_recon(dec, fh, key, lf, sections, alloc=None):
+    """The staging of a recompressed JPEG's 4:2:0 frame
+    (``_device_decode_inputs``): (FrameReconJpeg, key, loop filter), or
+    None where the native AC decode cannot take it (a block other than
+    DCT8, prefix codes, LZ77, a value outside int16). The three int16
+    coefficient planes are laid out first (in the pool's shared-memory
+    segment), and the native AC decode writes them in place."""
+    from libjxl_torch.models.vardct_decode import FrameReconJpeg
+    from libjxl_torch.utils import host_stage, prof
+
+    alloc = alloc or _new_arrays
+    x_dm = (1 / 1.25) ** (fh.x_qm_scale - 2.0)
+    b_dm = (1 / 1.25) ** (fh.b_qm_scale - 2.0)
+    frame = [np.asarray(d, np.float32) for d in dec.dc] + [
+        dec.raw_quant,
+        dec.matrices.table_for_strategy(0).reshape(3, 64).astype(np.float32)]
+    specs = host_stage.subsampled_planes_shapes(dec)
+    with prof.stage("host.stage_out", jpeg=1):
+        out = alloc(specs + _specs(frame))
+        dc_x, dc_y, dc_b, raw_quant, table = _copy_into(frame, out[3:])
+    threads = _native_ac_threads(len(sections))
+    with prof.stage("host.ac_decode", groups=len(sections), jpeg=1,
+                    threads=threads):
+        planes = dec.decode_ac_frame_native(sections, n_threads=threads,
+                                            planes=out[:3])
+    if planes is None:
+        return None
+    fr = FrameReconJpeg(
+        q_x=planes[0], q_y=planes[1], q_b=planes[2], dc_x=dc_x, dc_y=dc_y,
+        dc_b=dc_b, raw_quant=raw_quant, table=table,
+        inv_gs=np.float32(dec.quantizer.inv_global_scale),
+        dms=np.asarray([x_dm, 1.0, b_dm], np.float32))
+    return fr, key, lf
 
 
 def _frame_recon(dec, fh, meta, key, lf, is_var, sparse_pairs, dense_buf,
@@ -1185,11 +1245,14 @@ def decode_many(streams, workers: int | None = None, device=None,
     setting and bit depth are then reconstructed on ``device`` in chunks
     of 8 by ``models.vardct_decode.decode_frames_device`` (all-DCT8
     frames) or ``decode_frames_device_var`` (variable block sizes: every
-    effort >= 5 encode, whatever strategy classes each frame uses), and
-    only the integer images come back. ``decode_many.device_frames``
-    counts the frames the device reconstructed. Streams the device
-    program does not take (modular, not 4:4:4, image features, extra
-    channels, AC tables other than the defaults, ...) decode on the host
+    effort >= 5 encode, whatever strategy classes each frame uses), or,
+    for a recompressed JPEG's frame (YCbCr, 4:2:0, all DCT8, its own
+    RAW tables), ``decode_frames_device_jpeg``, and only the integer
+    images come back. ``decode_many.device_frames`` counts the frames the
+    device reconstructed, ``decode_many.jpeg_frames`` the JPEG frames
+    among them. Streams the device program does not take (modular, 4:4:4
+    YCbCr, other subsampling, image features, extra channels, AC tables
+    other than the defaults on an XYB frame, ...) decode on the host
     with ``decode``, on the same pool.
 
     Each chunk shares its frames' loop-filter constants. A stream that
@@ -1212,7 +1275,8 @@ def _decode_many(streams, workers, device, fetch: bool) -> list:
 
     from libjxl_torch.config import resolve_device
     from libjxl_torch.models.vardct_decode import (
-        decode_frames_device, decode_frames_device_var,
+        decode_frames_device, decode_frames_device_jpeg,
+        decode_frames_device_var,
     )
     from libjxl_torch.parallel import host_pool
     from libjxl_torch.render.filters_torch import lf_key
@@ -1222,9 +1286,11 @@ def _decode_many(streams, workers, device, fetch: bool) -> list:
     workers = workers or os.cpu_count() or 1
     with prof.stage("decode_many.host_wait", streams=len(streams)):
         prepped = host_pool.map_decode_inputs(streams, workers)
-    # frames of one shape, filters, loop-filter constants and bit depth
-    # go together; var frames of different strategy classes too (each
-    # class runs over the chunk)
+    # frames of one shape, filters, loop-filter constants, bit depth,
+    # colour transform and subsampling go together; var frames of
+    # different strategy classes too (each class runs over the chunk),
+    # and JPEG frames of different quant tables (each frame brings its
+    # own)
     by_key: dict = {}
     for i, p in enumerate(prepped):
         if p is not None:
@@ -1233,8 +1299,10 @@ def _decode_many(streams, workers, device, fetch: bool) -> list:
     chunk_n = 8
     for (key, _), idxs in by_key.items():
         h, w, yb, xb, gab, epf_iters, bits = key[:7]
-        fn = decode_frames_device_var if key[7:8] == ("var",) \
-            else decode_frames_device
+        kind = key[7:8]
+        fn = {("var",): decode_frames_device_var,
+              ("jpeg420",): decode_frames_device_jpeg}.get(
+                  kind, decode_frames_device)
         lf = prepped[idxs[0]][2]
         # every chunk is enqueued before the first fetch, so the device
         # works on chunk i+1 while chunk i's image is copied back
@@ -1246,6 +1314,8 @@ def _decode_many(streams, workers, device, fetch: bool) -> list:
                     [prepped[i][0] for i in chunk], lf, gab, epf_iters, h,
                     w, maxval=(1 << bits) - 1, device=device, fetch=False)))
             decode_many.device_frames += len(chunk)
+            if kind == ("jpeg420",):
+                decode_many.jpeg_frames += len(chunk)
         for chunk, out in pending:
             if fetch:
                 with prof.stage("decode_many.fetch",
@@ -1290,6 +1360,7 @@ def _stream_filters_on_device(data: bytes) -> bool:
 
 
 decode_many.device_frames = 0
+decode_many.jpeg_frames = 0
 
 
 def decode(data: bytes, device=None) -> np.ndarray:

@@ -19,7 +19,10 @@
 // group. Built by g++ (``libjxl_torch/utils/host_stage.py``); plain C
 // interface.
 
+#include <atomic>
 #include <cstdint>
+#include <cstring>
+#include <thread>
 #include <vector>
 
 #if defined(__AVX2__)
@@ -247,6 +250,220 @@ int64_t jxlt_stage_fill(int64_t n, const int64_t* rects,
     if (rank[s] != counts[3 * s] || cur[s] != counts[3 * s + 1]) return -5;
   }
   return 0;
+}
+
+// AC token decode of a one-pass frame with subsampled chroma, every
+// block DCT8 (a recompressed JPEG's frame), straight into dense int16
+// coefficient planes: channel c is a (fhb >> vs[c], fwb >> hs[c], 64)
+// array, each block's 64 values in the stored (transposed) layout that
+// the coefficient order names. The token loop of DecodeACVarBlock
+// (dec_group.cc:470-545) as ``native/jxl_host.cc``'s
+// jxlt_ac_frame_decode runs it, with a block grid per channel: the luma
+// blocks of a group go in raster order, and at each the channels Y, X,
+// B, a subsampled channel's block only where the luma position is a
+// multiple of its sampling (dec_group.cc:370-376); each channel predicts
+// its nonzero count from its own grid, and reads the block context of
+// the luma position (``plain twin``: the Python path of
+// ``vardct/frame_dec.py`` decode_ac_group, in JPEG mode).
+//
+// sec_off/sec_len/start_bit: each group's AC section in ``data``;
+// rects (n, 4): bx0, by0, w, h in luma blocks; the entropy tables, the
+// context map and the (3, fhb, fwb) block contexts as the frame decode
+// takes them; ``orders`` and ``order_off`` the coefficient orders
+// (DCT8's are at order_off[c]); planes: 3 int16 pointers. Groups run on
+// ``n_threads`` threads. Returns 0, or the first error: -1 checksum,
+// -2 corrupt token, -3 invalid nonzero count, -4 overrun, -6 a value
+// outside int16.
+namespace {
+
+constexpr uint32_t kAnsTabSize = 1u << 12;
+constexpr uint32_t kAnsSignature = 0x13;
+
+// kCoeffFreqContext / kCoeffNumNonzeroContext (ac_context.h:28-48)
+const uint8_t kCoeffFreqCtx[64] = {
+    0xBA, 0,  1,  2,  3,  4,  5,  6,  7,  8,  9,  10, 11, 12, 13, 14,
+    15, 15, 16, 16, 17, 17, 18, 18, 19, 19, 20, 20, 21, 21, 22, 22,
+    23, 23, 23, 23, 24, 24, 24, 24, 25, 25, 25, 25, 26, 26, 26, 26,
+    27, 27, 27, 27, 28, 28, 28, 28, 29, 29, 29, 29, 30, 30, 30, 30};
+const uint8_t kCoeffNumNonzeroCtx[64] = {
+    0xBA, 0,   31,  62,  62,  93,  93,  93,  93,  123, 123, 123, 123,
+    152,  152, 152, 152, 152, 152, 152, 152, 180, 180, 180, 180, 180,
+    180,  180, 180, 180, 180, 180, 180, 206, 206, 206, 206, 206, 206,
+    206,  206, 206, 206, 206, 206, 206, 206, 206, 206, 206, 206, 206,
+    206,  206, 206, 206, 206, 206, 206, 206, 206, 206, 206, 206};
+
+struct Ans {
+  const uint8_t* data;
+  int64_t nbytes;
+  int64_t bitpos;
+  uint32_t state = 0;
+  bool overflow = false;
+
+  uint64_t Read(int nbits) {
+    if (nbits == 0) return 0;
+    const int64_t byte = bitpos >> 3;
+    if ((bitpos + nbits + 7) / 8 > nbytes) {
+      overflow = true;
+      return 0;
+    }
+    uint64_t v = 0;
+    const int64_t avail = nbytes - byte;
+    memcpy(&v, data + byte, avail >= 8 ? 8 : avail);
+    v >>= (bitpos & 7);
+    bitpos += nbits;
+    return v & ((1ull << nbits) - 1);
+  }
+};
+
+struct Tables {
+  const int32_t *alias_sym, *alias_off, *freqs, *uint_cfg, *ctx_map;
+  int64_t n_ctx;
+  int32_t num_ctxs;
+};
+
+// One hybrid uint of context ``ctx``, or -2 for a corrupt token.
+inline int64_t read_uint(Ans& a, const Tables& t, int64_t ctx) {
+  const int h = t.ctx_map[ctx];
+  const uint32_t res = a.state & (kAnsTabSize - 1);
+  const uint32_t tok = static_cast<uint32_t>(t.alias_sym[h * 4096 + res]);
+  a.state = static_cast<uint32_t>(t.freqs[h * 256 + tok]) * (a.state >> 12) +
+            static_cast<uint32_t>(t.alias_off[h * 4096 + res]);
+  if (a.state < (1u << 16)) {
+    a.state = (a.state << 16) | static_cast<uint32_t>(a.Read(16));
+  }
+  const int se = t.uint_cfg[h * 3], msb = t.uint_cfg[h * 3 + 1],
+            lsb = t.uint_cfg[h * 3 + 2];
+  const uint32_t split = 1u << se;
+  if (tok < split) return tok;
+  const uint32_t nb = se - (msb + lsb) + ((tok - split) >> (msb + lsb));
+  if (nb > 31) return -2;
+  const uint32_t low = tok & ((1u << lsb) - 1);
+  const uint32_t t2 = tok >> lsb;
+  const uint64_t extra = a.Read(static_cast<int>(nb));
+  return static_cast<int64_t>(
+      ((((((1ull << msb) | (t2 & ((1u << msb) - 1))) << nb) | extra)
+        << lsb) |
+       low));
+}
+
+int64_t decode_group_subsampled(
+    Ans& a, const Tables& t, int32_t ctx_offset, const int64_t* rect,
+    const int32_t* block_ctx3, int64_t fwb, int64_t fhb,
+    const int32_t* orders, const int64_t* order_off, const int32_t* hs,
+    const int32_t* vs, int16_t* const* planes) {
+  const int64_t bx0 = rect[0], by0 = rect[1], gw = rect[2], gh = rect[3];
+  std::vector<int32_t> nz[3];
+  int64_t nzw[3];
+  for (int c = 0; c < 3; ++c) {
+    nzw[c] = gw >> hs[c];
+    nz[c].assign(static_cast<size_t>((gh >> vs[c]) * nzw[c]), 0);
+  }
+  static const int kChanOrder[3] = {1, 0, 2};
+  for (int64_t by = 0; by < gh; ++by) {
+    for (int64_t bx = 0; bx < gw; ++bx) {
+      for (int ci = 0; ci < 3; ++ci) {
+        const int c = kChanOrder[ci];
+        if (((bx >> hs[c]) << hs[c]) != bx || ((by >> vs[c]) << vs[c]) != by)
+          continue;
+        const int64_t x = bx >> hs[c], y = by >> vs[c];
+        int32_t* nzp = nz[c].data();
+        int predicted;
+        if (x == 0) {
+          predicted = y > 0 ? nzp[(y - 1) * nzw[c]] : 32;
+        } else if (y == 0) {
+          predicted = nzp[x - 1];
+        } else {
+          predicted = (nzp[(y - 1) * nzw[c] + x] + nzp[y * nzw[c] + x - 1] +
+                       1) / 2;
+        }
+        if (predicted > 64) predicted = 64;
+        const int64_t fy = by0 + by, fx = bx0 + bx;
+        const int block_ctx = block_ctx3[(c * fhb + fy) * fwb + fx];
+        const int nz_small = predicted < 8 ? predicted : 4 + predicted / 2;
+        const int64_t nzero_ctx =
+            ctx_offset + static_cast<int64_t>(nz_small) * t.num_ctxs +
+            block_ctx;
+        if (nzero_ctx >= t.n_ctx) return -2;
+        int64_t nzeros = read_uint(a, t, nzero_ctx);
+        if (nzeros < 0 || nzeros > 63) return -3;
+        nzp[y * nzw[c] + x] = static_cast<int32_t>(nzeros);
+        const int64_t pw = fwb >> hs[c];
+        int16_t* out = planes[c] + (((fy >> vs[c]) * pw) + (fx >> hs[c])) * 64;
+        memset(out, 0, 64 * sizeof(int16_t));
+        const int64_t histo_off = ctx_offset + t.num_ctxs * 37 +
+                                  458 * static_cast<int64_t>(block_ctx);
+        const int32_t* order = orders + order_off[c];
+        int prev = nzeros > 4 ? 0 : 1;
+        for (int k = 1; k < 64 && nzeros != 0; ++k) {
+          const int64_t ctx =
+              histo_off +
+              (kCoeffNumNonzeroCtx[nzeros] + kCoeffFreqCtx[k]) * 2 + prev;
+          if (ctx >= t.n_ctx) return -2;
+          const int64_t u = read_uint(a, t, ctx);
+          if (u < 0) return -2;
+          const int64_t coeff = (u & 1) ? -(u >> 1) - 1 : (u >> 1);
+          const int32_t pos = order[k];
+          if (pos < 0 || pos >= 64) return -2;
+          if (coeff < -32768 || coeff > 32767) return -6;
+          out[pos] = static_cast<int16_t>(coeff);
+          prev = u != 0;
+          nzeros -= prev;
+        }
+        if (nzeros != 0) return -3;
+      }
+    }
+  }
+  return 0;
+}
+
+}  // namespace
+
+int64_t jxlt_ac_decode_subsampled(
+    const uint8_t* data, const int64_t* sec_off, const int64_t* sec_len,
+    const int64_t* start_bit, int64_t n_groups, const int64_t* rects,
+    const int32_t* alias_sym, const int32_t* alias_off, const int32_t* freqs,
+    const int32_t* uint_cfg, const int32_t* ctx_map, int64_t n_ctx,
+    int32_t selector_bits, int32_t num_histograms, int32_t num_ac_ctxs,
+    int32_t num_ctxs, const int32_t* block_ctx3, int64_t fwb, int64_t fhb,
+    const int32_t* orders, const int64_t* order_off, const int32_t* hs,
+    const int32_t* vs, const uintptr_t* planes, int32_t n_threads) {
+  const Tables t{alias_sym, alias_off, freqs, uint_cfg, ctx_map, n_ctx,
+                 num_ctxs};
+  int16_t* const out[3] = {reinterpret_cast<int16_t*>(planes[0]),
+                           reinterpret_cast<int16_t*>(planes[1]),
+                           reinterpret_cast<int16_t*>(planes[2])};
+  std::atomic<int64_t> next(0), err(0);
+  auto worker = [&]() {
+    for (;;) {
+      const int64_t g = next.fetch_add(1);
+      if (g >= n_groups) return;
+      Ans a{data + sec_off[g], sec_len[g], start_bit[g]};
+      // the histogram selector precedes the ANS state (dec_frame.cc:481)
+      const int64_t sel = selector_bits ? a.Read(selector_bits) : 0;
+      int64_t res = -4;
+      if (!a.overflow && sel < num_histograms) {
+        a.state = static_cast<uint32_t>(a.Read(32));
+        res = decode_group_subsampled(
+            a, t, static_cast<int32_t>(sel * num_ac_ctxs), rects + 4 * g,
+            block_ctx3, fwb, fhb, orders, order_off, hs, vs, out);
+        if (res == 0 && a.overflow) res = -4;
+        if (res == 0 && a.state != (kAnsSignature << 16)) res = -1;
+      }
+      if (res < 0) {
+        int64_t expected = 0;
+        err.compare_exchange_strong(expected, res);
+      }
+    }
+  };
+  const int64_t nt = n_threads < n_groups ? n_threads : n_groups;
+  if (nt <= 1) {
+    worker();
+  } else {
+    std::vector<std::thread> threads;
+    for (int64_t i = 0; i < nt; ++i) threads.emplace_back(worker);
+    for (auto& th : threads) th.join();
+  }
+  return err.load();
 }
 
 }  // extern "C"

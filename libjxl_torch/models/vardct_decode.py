@@ -19,6 +19,15 @@ class, and each class of the batch is one set of dense products:
     -> LLF from the DC -> IDCT (or a 64x64 special matrix) -> scatter
     by block position -> the same filters and output
 
+A recompressed JPEG's frame (YCbCr, chroma 4:2:0, every block DCT8,
+the JPEG's own quant tables, no filters) travels as three dense int16
+coefficient planes, one a channel at its own block grid, with its DC and
+its dequant table; each plane of the batch is one set of products:
+
+    AdjustQuantBias -> dequant by each frame's table -> IDCT8 per plane
+    -> chroma upsampling + YCbCr -> RGB + rounding (CUDA kernel
+    ``csrc/ycbcr.cu``)
+
 The reference shipped the batch as one int32 blob padded to power-of-two
 buckets (for the var path: dense classes at power-of-two counts and a
 scratch frame for the padding blocks), for a slow development link and
@@ -85,6 +94,26 @@ class FrameReconVar(NamedTuple):
     intensity: object     # f32 intensity target
 
 
+class FrameReconJpeg(NamedTuple):
+    """Inputs of one recompressed JPEG frame's device reconstruction
+    (numpy leaves): per channel X (Cb), Y and B (Cr) its quantized
+    coefficients as a dense (rows, cols, 64) int16 plane of its own
+    block grid (4:2:0: chroma halved both ways), each block in the
+    stored layout, and its DC (rows, cols) f32 (not smoothed, no chroma
+    from luma under subsampling)."""
+
+    q_x: object           # (yb / 2, xb / 2, 64) i16 Cb coefficients
+    q_y: object           # (yb, xb, 64) i16 Y coefficients
+    q_b: object           # (yb / 2, xb / 2, 64) i16 Cr coefficients
+    dc_x: object          # (yb / 2, xb / 2) f32 dequantized DC
+    dc_y: object          # (yb, xb) f32
+    dc_b: object          # (yb / 2, xb / 2) f32
+    raw_quant: object     # (yb, xb) i32; a chroma block reads its luma
+    table: object         # (3, 64) f32 the frame's DCT8 dequant table
+    inv_gs: object        # f32 quantizer inverse global scale
+    dms: object           # (3,) f32 x/b qm-scale dequant multipliers
+
+
 # the 8x8 transforms that are not a DCT: IDENTITY, DCT2X2, DCT4X4,
 # DCT4X8, DCT8X4, AFV0-3 (one 64x64 matrix each)
 _SPECIALS = (1, 2, 3, 12, 13, 14, 15, 16, 17)
@@ -104,15 +133,19 @@ def _upload(parts: list, dev) -> torch.Tensor:
     return torch.from_numpy(np.concatenate(parts)).to(dev)
 
 
-def _adjust_quant_bias(q: torch.Tensor) -> torch.Tensor:
+def _adjust_quant_bias(q: torch.Tensor, channel: int | None = None
+                       ) -> torch.Tensor:
     """AdjustQuantBias (quantizer-inl.h:35-60) on float32 quantized
-    coefficients whose axis 1 is the channel."""
+    coefficients whose axis 1 is the channel, or all of ``channel``."""
     absq = q.abs()
     biased = q - K_BIASES[3] / torch.where(q == 0, 1.0, q)
     biased = torch.where(absq < 0.5, 0.0, biased)
-    shape = (1, 3) + (1,) * (q.dim() - 2)
-    small = torch.sign(q) * torch.tensor(K_BIASES[:3], dtype=torch.float32,
-                                         device=q.device).reshape(shape)
+    if channel is None:
+        shape = (1, 3) + (1,) * (q.dim() - 2)
+        small = torch.sign(q) * torch.tensor(
+            K_BIASES[:3], dtype=torch.float32, device=q.device).reshape(shape)
+    else:
+        small = torch.sign(q) * K_BIASES[channel]
     return torch.where((absq > 0.5) & (absq < 1.5), small, biased)
 
 
@@ -300,3 +333,63 @@ def decode_frames_device_var(inputs: list, lf, gab: bool, epf_iters: int,
     dev = resolve_device(device)
     return _restore_output(_dequant_idct_var(inputs, h, w, dev), inputs, lf,
                            gab, epf_iters, maxval, dev, fetch)
+
+
+def _jpeg_plane(inputs: list, c: int, dev) -> torch.Tensor:
+    """(K, rows * 8, cols * 8) float32 pixels of channel ``c`` of
+    recompressed JPEG frames: AdjustQuantBias, dequant by each frame's
+    table, the DC into each block's lowest slot and the 8x8 IDCT (the
+    host's per-block steps, ``vardct/frame_dec.py`` _reconstruct_block
+    without 4:4:4)."""
+    f32 = torch.float32
+    name = "xyb"[c]
+    q0 = getattr(inputs[0], "q_" + name)
+    rows, cols = q0.shape[:2]
+    q = torch.empty((len(inputs), rows, cols, 64), dtype=torch.int16,
+                    device=dev)
+    for k, f in enumerate(inputs):
+        q[k].copy_(torch.from_numpy(np.asarray(getattr(f, "q_" + name))))
+    biased = _adjust_quant_bias(q.to(f32), c)
+    del q
+    # dequant: (table x per-block scalar) x qm-scale, each frame its own
+    table = _stack(inputs, "table", dev, f32)[:, c]
+    dms = _stack(inputs, "dms", dev, f32)[:, c]
+    inv_gs = _stack(inputs, "inv_gs", dev, f32)
+    step_y = inputs[0].raw_quant.shape[0] // rows
+    step_x = inputs[0].raw_quant.shape[1] // cols
+    qf = _stack(inputs, "raw_quant", dev, f32)[:, ::step_y, ::step_x]
+    sd = inv_gs.reshape(-1, 1, 1) / qf
+    dq = biased * ((table[:, None, None, :] * sd[..., None]) *
+                   dms.reshape(-1, 1, 1, 1))
+    del biased
+    dq[..., 0] = _stack(inputs, "dc_" + name, dev, f32)
+    # the stored 8x8 block is the coefficient grid transposed (see
+    # _dequant_idct)
+    im = _matrix(idct_matrix(8), dev)
+    pix = _sandwich(im, dq.reshape(-1, rows, cols, 8, 8), im).transpose(
+        -1, -2)
+    return pix.permute(0, 1, 3, 2, 4).reshape(-1, rows * 8, cols * 8)
+
+
+def decode_frames_device_jpeg(inputs: list, lf, gab: bool, epf_iters: int,
+                              h: int, w: int, maxval: int = 255,
+                              device=None, fetch: bool = True):
+    """Reconstruct a batch of same-shape recompressed JPEG frames (4:2:0
+    YCbCr, all DCT8; ``inputs`` a list of ``FrameReconJpeg``) on
+    ``device``: each plane at its own size, then the chroma upsampling
+    and the YCbCr to 8-bit RGB of ``models/ycbcr_kernel.py``. ``lf``,
+    ``gab`` and ``epf_iters`` are those of the other decodes' signature
+    (such a frame has no filters) and ``maxval`` must be 255. Returns
+    what ``decode_frames_device`` returns."""
+    from libjxl_torch.models.ycbcr_kernel import ycbcr420_to_rgb8
+
+    if gab or epf_iters or maxval != 255:
+        raise ValueError("a recompressed JPEG frame decodes to 8 bits "
+                         "without filters")
+    dev = resolve_device(device)
+    planes = [_jpeg_plane(inputs, c, dev) for c in range(3)]
+    out = ycbcr420_to_rgb8(planes[1], planes[0], planes[2], h, w)
+    if not fetch:
+        return out
+    arr = out.cpu().numpy()
+    return [arr[k] for k in range(len(inputs))]

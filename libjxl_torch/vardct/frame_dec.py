@@ -398,7 +398,7 @@ class VarDCTFrameDecoder:
 
     def decode_ac_frame_native(self, sections: dict, n_threads: int = 0,
                                dense_buf: np.ndarray | None = None,
-                               sparse: bool = False):
+                               sparse: bool = False, planes=None):
         """Decode ALL single-pass AC group sections concurrently in ONE
         native call (std::threads inside — the dec_frame.cc:726
         RunOnPool-over-groups analog without per-group Python/GIL cost).
@@ -411,15 +411,26 @@ class VarDCTFrameDecoder:
 
         ``dense_buf``: for all-8x8 streams, a zeroed (3, fhb, fwb, 64)
         int32 frame buffer the decoder fills in place (no per-group
-        copy); per-group coeffs in the result are then views of it."""
+        copy); per-group coeffs in the result are then views of it.
+
+        ``planes``: for a subsampled all-DCT8 frame (a recompressed
+        JPEG's), the three int16 coefficient planes of
+        ``utils.host_stage.ac_decode_subsampled``, which decodes into
+        them and returns them (None where it cannot); without them such
+        a frame gets None."""
         import ctypes
 
         from libjxl_torch.utils import native
         from libjxl_torch.vardct.ac_strategy import (
             COVERED_X, COVERED_Y, LOG2_COVERED, STRATEGY_ORDER,
         )
-        if not native.available() or not self.is_444:
+        if not native.available():
             return None
+        if not self.is_444:
+            if planes is None:
+                return None
+            from libjxl_torch.utils.host_stage import ac_decode_subsampled
+            return ac_decode_subsampled(self, sections, planes, n_threads)
         code = self.codes[0]
         if code.use_prefix_code or code.lz77.enabled:
             return None
