@@ -1248,12 +1248,16 @@ def decode_many(streams, workers: int | None = None, device=None,
     effort >= 5 encode, whatever strategy classes each frame uses), or,
     for a recompressed JPEG's frame (YCbCr, 4:2:0, all DCT8, its own
     RAW tables), ``decode_frames_device_jpeg``, and only the integer
-    images come back. ``decode_many.device_frames`` counts the frames the
-    device reconstructed, ``decode_many.jpeg_frames`` the JPEG frames
-    among them. Streams the device program does not take (modular, 4:4:4
-    YCbCr, other subsampling, image features, extra channels, AC tables
-    other than the defaults on an XYB frame, ...) decode on the host
-    with ``decode``, on the same pool.
+    images come back, on a CUDA device each into a page-locked block of
+    its own (``fetch_frames``). ``decode_many.device_frames`` counts the
+    frames the device reconstructed, ``decode_many.jpeg_frames`` the
+    JPEG frames among them, ``decode_many.pinned_frames`` the frames
+    fetched into page-locked memory and ``decode_many.pinned_new_blocks``
+    the blocks torch's host cache pinned anew for them. Streams the
+    device program does not take (modular, 4:4:4 YCbCr, other
+    subsampling, image features, extra channels, AC tables other than
+    the defaults on an XYB frame, ...) decode on the host with
+    ``decode``, on the same pool.
 
     Each chunk shares its frames' loop-filter constants. A stream that
     decodes on the host and whose filters the device-filter policy puts
@@ -1276,7 +1280,7 @@ def _decode_many(streams, workers, device, fetch: bool) -> list:
     from libjxl_torch.config import resolve_device
     from libjxl_torch.models.vardct_decode import (
         decode_frames_device, decode_frames_device_jpeg,
-        decode_frames_device_var,
+        decode_frames_device_var, fetch_frames,
     )
     from libjxl_torch.parallel import host_pool
     from libjxl_torch.render.filters_torch import lf_key
@@ -1297,6 +1301,9 @@ def _decode_many(streams, workers, device, fetch: bool) -> list:
             by_key.setdefault((p[1][:8], lf_key(p[2])), []).append(i)
     results: list = [None] * len(streams)
     chunk_n = 8
+    # every chunk's program is enqueued before the fetch, whose copies
+    # queue behind them and are waited for once
+    pending = []
     for (key, _), idxs in by_key.items():
         h, w, yb, xb, gab, epf_iters, bits = key[:7]
         kind = key[7:8]
@@ -1304,9 +1311,6 @@ def _decode_many(streams, workers, device, fetch: bool) -> list:
               ("jpeg420",): decode_frames_device_jpeg}.get(
                   kind, decode_frames_device)
         lf = prepped[idxs[0]][2]
-        # every chunk is enqueued before the first fetch, so the device
-        # works on chunk i+1 while chunk i's image is copied back
-        pending = []
         for c0 in range(0, len(idxs), chunk_n):
             chunk = idxs[c0:c0 + chunk_n]
             with prof.stage("decode_many.device", frames=len(chunk)):
@@ -1316,15 +1320,19 @@ def _decode_many(streams, workers, device, fetch: bool) -> list:
             decode_many.device_frames += len(chunk)
             if kind == ("jpeg420",):
                 decode_many.jpeg_frames += len(chunk)
-        for chunk, out in pending:
-            if fetch:
-                with prof.stage("decode_many.fetch",
-                                bytes=out.numel() * out.element_size()):
-                    out = out.cpu().numpy()
-                if bits > 8:
-                    out = out.view(np.uint16)
-            for j, i in enumerate(chunk):
-                results[i] = out[j]
+    outs = [out for _, out in pending]
+    if fetch and pending:
+        with prof.stage("decode_many.fetch", bytes=sum(
+                o.numel() * o.element_size() for o in outs)) as sp:
+            got = fetch_frames(outs)
+            sp.set(pinned=got.pinned)
+        if got.pinned:
+            decode_many.pinned_frames += got.pinned
+            decode_many.pinned_new_blocks += got.new_blocks
+        outs = got.frames
+    for (chunk, _), out in zip(pending, outs):
+        for i, frame in zip(chunk, out):
+            results[i] = frame
     rest = [i for i, p in enumerate(prepped) if p is None]
     if not rest:
         return results
@@ -1361,6 +1369,8 @@ def _stream_filters_on_device(data: bytes) -> bool:
 
 decode_many.device_frames = 0
 decode_many.jpeg_frames = 0
+decode_many.pinned_frames = 0
+decode_many.pinned_new_blocks = 0
 
 
 def decode(data: bytes, device=None) -> np.ndarray:

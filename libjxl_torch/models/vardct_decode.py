@@ -288,6 +288,65 @@ def _dequant_idct_var(inputs: list, h: int, w: int, dev) -> torch.Tensor:
     return img[:, :, :h, :w]
 
 
+class Fetched(NamedTuple):
+    """What ``fetch_frames`` hands back."""
+
+    frames: list          # a list of (h, w, 3) numpy images a chunk
+    pinned: int           # frames copied into page-locked blocks
+    new_blocks: int       # blocks the host cache had to pin anew
+
+
+def _pinned_blocks(out: torch.Tensor):
+    """One page-locked block a frame of the chunk ``out`` from torch's
+    caching host allocator, and how many of them it pinned anew; None
+    where ``out`` is not on a CUDA device or a block cannot be pinned."""
+    if not out.is_cuda:
+        return None
+    before = torch.cuda.host_memory_stats()["num_host_alloc"]
+    try:
+        blocks = [torch.empty(out.shape[1:], dtype=out.dtype,
+                              pin_memory=True) for _ in range(len(out))]
+    except RuntimeError:
+        return None
+    return blocks, torch.cuda.host_memory_stats()["num_host_alloc"] - before
+
+
+def fetch_frames(chunks: list) -> Fetched:
+    """The frames of each device chunk in ``chunks`` ((K, h, w, 3) as the
+    device programs give them) as host images: uint8, or uint16 for a
+    16-bit chunk (its int16 bit patterns, see ``output_int``).
+
+    A chunk on a CUDA device is copied frame by frame into page-locked
+    blocks, one a frame, and each image is a numpy view of its own block:
+    the DMA writes the final array, with no copy on the host and no fresh
+    pageable pages. A block goes back to the cache only once nothing
+    refers to its image, so a frame the caller keeps holds its own block
+    alone and is never written again. Every copy is enqueued before one
+    wait on each device's stream. A chunk on the CPU, or whose blocks
+    cannot be pinned, comes back through ``Tensor.cpu()`` as views of
+    one array."""
+    held, pinned, new_blocks = [], 0, 0
+    for out in chunks:
+        got, blocks = _pinned_blocks(out), None
+        if got is not None:
+            blocks, n = got
+            for b, f in zip(blocks, out):
+                b.copy_(f, non_blocking=True)
+            pinned += len(blocks)
+            new_blocks += n
+        held.append(blocks)
+    for dev in {out.device for out, b in zip(chunks, held) if b}:
+        torch.cuda.current_stream(dev).synchronize()
+    frames = []
+    for out, blocks in zip(chunks, held):
+        arrs = [b.numpy() for b in blocks] if blocks is not None else \
+            list(out.cpu().numpy())
+        if out.dtype == torch.int16:
+            arrs = [a.view(np.uint16) for a in arrs]
+        frames.append(arrs)
+    return Fetched(frames, pinned, new_blocks)
+
+
 def _restore_output(img: torch.Tensor, inputs: list, lf, gab: bool,
                     epf_iters: int, maxval: int, dev, fetch: bool):
     """Gaborish + EPF and the integer output of each frame of ``img``
@@ -300,12 +359,7 @@ def _restore_output(img: torch.Tensor, inputs: list, lf, gab: bool,
                            float(f.quant_scale), lfp, bool(gab),
                            int(epf_iters)), float(f.intensity), int(maxval))
         for k, f in enumerate(inputs)])
-    if not fetch:
-        return out
-    arr = out.cpu().numpy()
-    if maxval > 255:
-        arr = arr.view(np.uint16)
-    return [arr[k] for k in range(len(inputs))]
+    return fetch_frames([out]).frames[0] if fetch else out
 
 
 def decode_frames_device(inputs: list, lf, gab: bool, epf_iters: int,
@@ -315,8 +369,9 @@ def decode_frames_device(inputs: list, lf, gab: bool, epf_iters: int,
 
     ``inputs`` is a list of per-frame ``FrameRecon`` with numpy leaves.
     Returns one (h, w, 3) numpy image per frame (uint8, or uint16 for
-    ``maxval > 255``), or with ``fetch=False`` the (K, h, w, 3) device
-    tensor (int16 bit patterns for 16-bit output, see ``output_int``)."""
+    ``maxval > 255``; see ``fetch_frames``), or with ``fetch=False`` the
+    (K, h, w, 3) device tensor (int16 bit patterns for 16-bit output, see
+    ``output_int``)."""
     dev = resolve_device(device)
     return _restore_output(_dequant_idct(inputs, h, w, dev), inputs, lf,
                            gab, epf_iters, maxval, dev, fetch)
@@ -389,7 +444,4 @@ def decode_frames_device_jpeg(inputs: list, lf, gab: bool, epf_iters: int,
     dev = resolve_device(device)
     planes = [_jpeg_plane(inputs, c, dev) for c in range(3)]
     out = ycbcr420_to_rgb8(planes[1], planes[0], planes[2], h, w)
-    if not fetch:
-        return out
-    arr = out.cpu().numpy()
-    return [arr[k] for k in range(len(inputs))]
+    return fetch_frames([out]).frames[0] if fetch else out
